@@ -1,0 +1,306 @@
+// K1 / K1r: fused decode-token write + flash-decode over the paged pool.
+//
+// Replaces the Pallas kernels of kvcached_tpu/ops/paged_attention.py:
+// _decode_write_kernel (write_kv=1) and _readonly_kernel (write_kv=0), both
+// over _attn_body.  Semantics kept exactly:
+//   - each row stores its current token's K/V at (slot_page, slot_offset)
+//     of `layer`; slot page 0 is the zero page and the write is discarded;
+//   - the row attends over tokens [win_start, seq_len), seq_len including
+//     the current token, win_start = max(seq_len - window, 0);
+//   - GQA: q head h*G + g reads kv head h;
+//   - scores are (q . k) * sm_scale in float32, online softmax in float32;
+//   - a row with no tokens yields zeros;
+//   - page-table entries past the row's last page are never read (the
+//     loops stop at seq_len instead of clamping the index).
+//
+// What bounds it on an H100: device-memory bytes.  Each (row, kv head)
+// reads its seq_len x D keys and values once; the FLOPs per byte are ~G,
+// far below the ~295 FLOP/byte ridge.  Design (split-K flash decoding):
+//   - pass 1, grid (row, kv head, split): each block takes SPLIT tokens of
+//     one row and one kv head; each of its 4 warps walks its share in
+//     groups of U tokens, a lane holding 4 of the 128 head_dim lanes, so a
+//     token's K or V row is one coalesced warp load and U rows are in
+//     flight per warp.  Dots are reduced with warp shuffles, the softmax is
+//     online per warp, and the warps merge in shared memory into one
+//     (max, sum, acc) partial per split;
+//   - pass 2, grid (row, kv head): merges the splits' partials.
+//   The split count follows the page-table width, so the 8 x 8 (row, kv
+//   head) pairs of an 8B decode batch become hundreds of blocks.
+// The token write is done by the split-0 block; every block that meets the
+// slot (slot_page, slot_offset) in its range takes k_new / v_new from
+// registers instead of reading the slot back, so no block waits on
+// another's store.  A row's pages are its own (prefix-cache pages are full
+// pages, never written; padded rows aim at page 0).
+#include "kv_common.cuh"
+
+namespace {
+
+constexpr int D = 128;            // head_dim
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int EPL = D / 32;       // head_dim lanes per thread
+constexpr int U = 8;              // tokens in flight per warp step
+constexpr int SPLIT = 256;        // tokens per block (ops/paged_attention.py)
+
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, float (&x)[EPL]);
+template <>
+__device__ __forceinline__ void load4<float>(const float* p, float (&x)[EPL]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+}
+template <>
+__device__ __forceinline__ void load4<__nv_bfloat16>(const __nv_bfloat16* p,
+                                                     float (&x)[EPL]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Pass 1.  GT >= G is the compile-time bound of the GQA group.
+template <typename T, int GT>
+__global__ void __launch_bounds__(THREADS) decode_split_kernel(
+    const T* __restrict__ q,             // [B, KH*G, D]
+    T* k_pool, T* v_pool,                // [L, P, KH, TP, D]
+    const int* __restrict__ page_tables, // [B, maxp]
+    const int* __restrict__ seq_lens,    // [B]
+    const T* __restrict__ k_new,         // [B, KH, D]
+    const T* __restrict__ v_new,
+    const int* __restrict__ slot_pages,  // [B]
+    const int* __restrict__ slot_offsets,
+    float* __restrict__ part_m,          // [B, KH, S, GT]
+    float* __restrict__ part_l,
+    float* __restrict__ part_acc,        // [B, KH, S, GT, D]
+    int layer, int num_pages, int KH, int G, int TP, int maxp, int window,
+    float sm_scale, int write_kv) {
+  using namespace kvc;
+  __shared__ float m_w[WARPS][GT], l_w[WARPS][GT];
+  __shared__ float acc_w[WARPS][GT][D];
+
+  const int b = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
+  const int S = gridDim.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int e0 = lane * EPL;
+  const size_t page_stride = (size_t)KH * TP * D;
+  const size_t base = (size_t)layer * num_pages * page_stride + (size_t)h * TP * D;
+
+  // the current token: split 0 stores it, every split keeps it to use in
+  // place of the slot's memory
+  int slot_page = -1, slot_off = -1;
+  float kn[EPL] = {0.f, 0.f, 0.f, 0.f}, vn[EPL] = {0.f, 0.f, 0.f, 0.f};
+  if (write_kv && slot_pages[b] != 0) {
+    slot_page = slot_pages[b];
+    slot_off = slot_offsets[b];
+    const size_t src = ((size_t)b * KH + h) * D + e0;
+    load4<T>(k_new + src, kn);
+    load4<T>(v_new + src, vn);
+    if (split == 0 && warp == 0) {
+      const size_t dst = base + (size_t)slot_page * page_stride +
+                         (size_t)slot_off * D + e0;
+#pragma unroll
+      for (int i = 0; i < EPL; ++i) {
+        k_pool[dst + i] = k_new[src + i];
+        v_pool[dst + i] = v_new[src + i];
+      }
+    }
+  }
+
+  float qv[GT][EPL];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    if (g < G) load4<T>(q + (((size_t)b * KH + h) * G + g) * D + e0, qv[g]);
+  }
+  float m[GT], l[GT], acc[GT][EPL];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) acc[g][i] = 0.f;
+  }
+
+  const int s_len = seq_lens[b];
+  const int lo = max(window > 0 ? s_len - window : 0, split * SPLIT);
+  const int hi = min(s_len, (split + 1) * SPLIT);
+  const int* row_pages = page_tables + (size_t)b * maxp;
+  for (int t0 = lo + warp * U; t0 < hi; t0 += WARPS * U) {
+    float kx[U][EPL], vx[U][EPL];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int pos = t0 + u;
+      const int page = pos < hi ? row_pages[pos / TP] : 0;
+      const int off = pos % TP;
+      if (pos >= hi) {
+#pragma unroll
+        for (int i = 0; i < EPL; ++i) { kx[u][i] = 0.f; vx[u][i] = 0.f; }
+      } else if (page == slot_page && off == slot_off) {
+#pragma unroll
+        for (int i = 0; i < EPL; ++i) { kx[u][i] = kn[i]; vx[u][i] = vn[i]; }
+      } else {
+        const size_t src = base + (size_t)page * page_stride + (size_t)off * D + e0;
+        load4<T>(k_pool + src, kx[u]);
+        load4<T>(v_pool + src, vx[u]);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      if (g < G) {
+        float s[U];
+        float mt = -INFINITY;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float dot = 0.f;
+#pragma unroll
+          for (int i = 0; i < EPL; ++i) dot = fmaf(qv[g][i], kx[u][i], dot);
+          dot = warp_sum(dot);
+          s[u] = t0 + u < hi ? dot * sm_scale : -INFINITY;
+          mt = fmaxf(mt, s[u]);
+        }
+        const float m_new = fmaxf(m[g], mt);  // finite: t0 < hi
+        const float alpha = expf(m[g] - m_new);
+        float psum = 0.f;
+#pragma unroll
+        for (int i = 0; i < EPL; ++i) acc[g][i] *= alpha;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float p = t0 + u < hi ? expf(s[u] - m_new) : 0.f;
+          psum += p;
+          const float pr = round_op<T>(p);
+#pragma unroll
+          for (int i = 0; i < EPL; ++i) acc[g][i] = fmaf(pr, vx[u][i], acc[g][i]);
+        }
+        l[g] = l[g] * alpha + psum;
+        m[g] = m_new;
+      }
+    }
+  }
+
+  // merge the warps' partials into the block's
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < GT; ++g) { m_w[warp][g] = m[g]; l_w[warp][g] = l[g]; }
+  }
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) acc_w[warp][g][e0 + i] = acc[g][i];
+  }
+  __syncthreads();
+  const size_t prow = (((size_t)b * KH + h) * S + split) * GT;
+  for (int g = 0; g < G; ++g) {
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, m_w[w][g]);
+    float Lsum = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float wt = m_w[w][g] == -INFINITY ? 0.f : expf(m_w[w][g] - M);
+      Lsum += l_w[w][g] * wt;
+      A += acc_w[w][g][tid] * wt;
+    }
+    part_acc[(prow + g) * D + tid] = A;
+    if (tid == 0) {
+      part_m[prow + g] = M;
+      part_l[prow + g] = Lsum;
+    }
+  }
+}
+
+// Pass 2: merge the splits of one (row, kv head).
+template <typename T, int GT>
+__global__ void __launch_bounds__(D) decode_merge_kernel(
+    const float* __restrict__ part_m, const float* __restrict__ part_l,
+    const float* __restrict__ part_acc, T* __restrict__ out, int KH, int G,
+    int S) {
+  using namespace kvc;
+  const int b = blockIdx.x, h = blockIdx.y, d = threadIdx.x;
+  const size_t prow = ((size_t)b * KH + h) * S * GT;
+  for (int g = 0; g < G; ++g) {
+    float M = -INFINITY;
+    for (int s = 0; s < S; ++s) M = fmaxf(M, part_m[prow + s * GT + g]);
+    float Lsum = 0.f, A = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const float ms = part_m[prow + s * GT + g];
+      const float wt = ms == -INFINITY ? 0.f : expf(ms - M);
+      Lsum += part_l[prow + s * GT + g] * wt;
+      A += part_acc[(prow + s * GT + g) * D + d] * wt;
+    }
+    out[(((size_t)b * KH + h) * G + g) * D + d] =
+        from_f<T>(A / (Lsum == 0.f ? 1.f : Lsum));
+  }
+}
+
+template <typename T, int GT>
+int launch(const void* q, void* k_pool, void* v_pool, const void* page_tables,
+           const void* seq_lens, const void* k_new, const void* v_new,
+           const void* slot_pages, const void* slot_offsets, void* out,
+           void* scratch, int B, int layer, int num_pages, int KH, int G,
+           int TP, int maxp, int window, float sm_scale, int write_kv,
+           cudaStream_t stream) {
+  const int S = (maxp * TP + SPLIT - 1) / SPLIT;
+  float* part_m = (float*)scratch;
+  float* part_l = part_m + (size_t)B * KH * S * GT;
+  float* part_acc = part_l + (size_t)B * KH * S * GT;
+  decode_split_kernel<T, GT><<<dim3(B, KH, S), THREADS, 0, stream>>>(
+      (const T*)q, (T*)k_pool, (T*)v_pool, (const int*)page_tables,
+      (const int*)seq_lens, (const T*)k_new, (const T*)v_new,
+      (const int*)slot_pages, (const int*)slot_offsets, part_m, part_l,
+      part_acc, layer, num_pages, KH, G, TP, maxp, window, sm_scale, write_kv);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  decode_merge_kernel<T, GT><<<dim3(B, KH), D, 0, stream>>>(
+      part_m, part_l, part_acc, (T*)out, KH, G, S);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(int G, const void* q, void* k_pool, void* v_pool,
+             const void* page_tables, const void* seq_lens, const void* k_new,
+             const void* v_new, const void* slot_pages,
+             const void* slot_offsets, void* out, void* scratch, int B,
+             int layer, int num_pages, int KH, int TP, int maxp, int window,
+             float sm_scale, int write_kv, cudaStream_t s) {
+#define KVC_DECODE(GT)                                                      \
+  return launch<T, GT>(q, k_pool, v_pool, page_tables, seq_lens, k_new,     \
+                       v_new, slot_pages, slot_offsets, out, scratch, B,    \
+                       layer, num_pages, KH, G, TP, maxp, window, sm_scale, \
+                       write_kv, s)
+  if (G <= 4) KVC_DECODE(4);
+  if (G <= 8) KVC_DECODE(8);
+  KVC_DECODE(16);
+#undef KVC_DECODE
+}
+
+}  // namespace
+
+// scratch: B * KH * S * GT * (D + 2) floats, S = ceil(maxp * TP / 256),
+// GT = 4, 8 or 16 (the smallest >= G); the wrapper allocates it.
+extern "C" int kvc_paged_decode(
+    int dtype, const void* q, void* k_pool, void* v_pool,
+    const void* page_tables, const void* seq_lens, const void* k_new,
+    const void* v_new, const void* slot_pages, const void* slot_offsets,
+    void* out, void* scratch, int B, int layer, int num_pages, int KH, int G,
+    int TP, int maxp, int window, float sm_scale, int write_kv, void* stream) {
+  if (G < 1 || G > 16) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == kvc::kF32)
+    return dispatch<float>(G, q, k_pool, v_pool, page_tables, seq_lens, k_new,
+                           v_new, slot_pages, slot_offsets, out, scratch, B,
+                           layer, num_pages, KH, TP, maxp, window, sm_scale,
+                           write_kv, s);
+  if (dtype == kvc::kBF16)
+    return dispatch<__nv_bfloat16>(G, q, k_pool, v_pool, page_tables,
+                                   seq_lens, k_new, v_new, slot_pages,
+                                   slot_offsets, out, scratch, B, layer,
+                                   num_pages, KH, TP, maxp, window, sm_scale,
+                                   write_kv, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,799 @@
+"""Continuous-batching LLM engine over the elastic KV pool.
+
+Port of the single-device subset of ``kvcached_tpu/engine/engine.py``:
+
+- **Scheduler** (host): fcfs / priority / sjf admission, per-sequence block
+  allocation through :class:`KVCacheManager` (so a ``kvctl limit`` through
+  the shm plane applies to serving), newest-first preemption under memory
+  pressure, chunked prefill interleaved with decode, batched prefill, the
+  prefix cache (off for sliding-window models), stop ids and stop strings.
+- **Runner** (device): prefill steps and a **decode horizon** of K steps per
+  dispatch.  Where the JAX engine scanned the K steps inside one jitted
+  program, the port runs a host loop of K steps: the per-step positions,
+  slots and lengths are computed on the host once per dispatch and copied
+  to the card in one transfer, the sampled tokens feed the next step on the
+  card, and the K x B tokens come back in one transfer at the end.
+- Engine blocks are pool pages (``block_tokens == page_tokens``); page
+  tables hold physical page ids for the kernels.
+
+The mesh, pipeline-parallel, speculative-decoding, quantized-pool, stateful
+and multi-group paths of the JAX engine are not ported yet.
+
+Sampling draws from ``torch.Generator`` s seeded from the engine step (and
+the request seed for first tokens), so an identical engine history
+reproduces identical outputs; the numbers differ from ``jax.random``'s.
+"""
+
+from __future__ import annotations
+
+import bisect
+import hashlib
+import itertools
+import time
+from dataclasses import dataclass
+from typing import Sequence as Seq
+
+import numpy as np
+import torch
+
+from ..config import KVConfig
+from ..device.pool import DevicePagePool, PoolSpec, hbm_free_bytes, resolve_device
+from ..kv_cache_manager import KVCacheManager
+from ..logging_utils import get_kvcached_logger
+from ..models.adapter import as_adapter
+from .prefix_cache import PrefixCache, page_keys
+
+logger = get_kvcached_logger(__name__)
+
+
+@dataclass
+class SamplingParams:
+    max_new_tokens: int = 32
+    temperature: float = 0.0  # 0 = greedy (deterministic)
+    top_k: int = 0  # 0 = disabled; keep the k highest-logit tokens
+    top_p: float = 1.0  # nucleus sampling; 1.0 = disabled
+    seed: int = 0
+    stop_token_ids: tuple[int, ...] = ()
+    #: stop STRINGS: generation ends when the decoded output contains one;
+    #: the returned text is truncated before it.  Needs a tokenizer.
+    stop: tuple[str, ...] = ()
+
+
+def _generator(device, *seeds: int) -> torch.Generator:
+    """A generator on ``device`` seeded from the given integers."""
+    h = hashlib.blake2b(digest_size=8)
+    for s in seeds:
+        h.update(int(s).to_bytes(8, "little", signed=True))
+    seed = int.from_bytes(h.digest(), "little") & ((1 << 63) - 1)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _filtered_scaled(logits, temps, top_ks, top_ps, *, filters: bool):
+    """Temperature-scaled logits with rank-based top-k / top-p filtering on
+    the last axis (parameter tensors broadcast against the leading axes).
+    Rank-based: a stable sort breaks ties by token index exactly like
+    argmax, so top_k=1 equals greedy even when logits tie at the max."""
+    scaled = logits / torch.clamp(temps, min=1e-6)[..., None]
+    if filters:
+        V = logits.shape[-1]
+        order = torch.argsort(-scaled, dim=-1, stable=True)  # desc token ids
+        ranks = torch.empty_like(order).scatter_(
+            -1, order, torch.arange(V, device=logits.device).expand_as(order))
+        k = torch.where(top_ks > 0, top_ks, torch.full_like(top_ks, V))
+        neg = torch.full_like(scaled, float("-inf"))
+        scaled = torch.where(ranks >= k[..., None], neg, scaled)
+        # nucleus: keep the smallest rank-prefix whose exclusive cumulative
+        # mass is < top_p (always >= 1 token)
+        desc = torch.gather(scaled, -1, order)
+        probs = torch.softmax(desc, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep_n = ((cum - probs) < top_ps[..., None]).sum(dim=-1)
+        scaled = torch.where(ranks >= keep_n.clamp(min=1)[..., None], neg, scaled)
+    return scaled
+
+
+def _sample_tokens(logits, temps, top_ks, top_ps, generator, *, filters: bool,
+                   sampled: bool = True):
+    """Per-row sampling: greedy where temp == 0, else a categorical draw
+    (Gumbel-max) from the temperature / top-k / top-p filtered logits.
+    ``sampled=False`` (no row has temp > 0, known on the host) skips the
+    draw."""
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    if not sampled:
+        return greedy
+    scaled = _filtered_scaled(logits, temps, top_ks, top_ps, filters=filters)
+    u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
+    gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+    draw = torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
+    return torch.where(temps > 0, draw, greedy)
+
+
+@dataclass
+class Request:
+    req_id: int
+    prompt: list[int]
+    sampling: SamplingParams
+    #: scheduling priority under scheduling_policy="priority" (smaller =
+    #: served sooner); ignored by fcfs/sjf
+    priority: int = 0
+
+
+@dataclass
+class RequestOutput:
+    req_id: int
+    prompt: list[int]
+    output_tokens: list[int]
+    finished: bool = True
+    #: decoded output truncated before the earliest stop string (only set
+    #: when a stop string fired)
+    output_text: str | None = None
+
+
+class Sequence:
+    def __init__(self, req: Request):
+        self.req = req
+        self.tokens: list[int] = list(req.prompt)
+        # block ids from the KVCacheManager; None = a page that slid out of
+        # the attention window and was reclaimed
+        self.blocks: list[int | None] = []
+        self.num_prefilled = 0
+        self.stop_hit = False  # a stop STRING fired
+        self.output_text: str | None = None
+
+    @property
+    def prompt_len(self) -> int:
+        return len(self.req.prompt)
+
+    @property
+    def num_generated(self) -> int:
+        return len(self.tokens) - self.prompt_len
+
+    def finished(self) -> bool:
+        sp = self.req.sampling
+        if self.stop_hit or self.num_generated >= sp.max_new_tokens:
+            return True
+        return bool(
+            sp.stop_token_ids
+            and self.num_generated > 0
+            and self.tokens[-1] in sp.stop_token_ids
+        )
+
+
+@dataclass
+class EngineConfig:
+    max_batch: int = 8
+    max_model_len: int = 2048
+    page_tokens: int = 64
+    decode_horizon: int = 8  # device steps per dispatch
+    prefill_buckets: tuple[int, ...] = (64, 128, 256, 512, 1024, 2048)
+    num_pages: int | None = None  # physical pool pages; None = from free memory
+    hbm_utilization: float = 0.3
+    kv_dtype: str = "bfloat16"
+    ipc_name: str | None = None
+    enable_prefix_caching: bool = True
+    max_cached_tokens: int | None = None  # None = KVCACHED_MAX_CACHED_TOKENS
+    #: shrink the decode horizon near sequence caps (no wasted steps)
+    adaptive_horizon: bool = True
+    #: batched prefill: stack up to this many waiting prompts into one
+    #: prefill pass (the weights stream once for N prompts).  Identical to
+    #: serial prefill.  1 = off.
+    prefill_batch: int = 1
+    #: admission order for the waiting queue: "fcfs", "priority" (smaller
+    #: Request.priority sooner; preemption evicts the worst-priority newest)
+    #: or "sjf" (shortest remaining prompt first)
+    scheduling_policy: str = "fcfs"
+
+
+class LLMEngine:
+    """Single-model serving engine on one device."""
+
+    _ids = itertools.count()
+
+    def __init__(
+        self,
+        model_cfg,
+        engine_cfg: EngineConfig | None = None,
+        *,
+        params=None,
+        seed: int = 0,
+        device=None,
+        tokenizer=None,
+    ):
+        """``device`` defaults to the card; pass ``device="cpu"`` to run the
+        kernels' plain versions on the CPU.  ``params``: a
+        :class:`~kvcached_tpu_torch.models.llama.LlamaModel` on that device
+        (random-initialized from ``seed`` when None)."""
+        self.adapter = as_adapter(model_cfg)
+        self.model_cfg = model_cfg
+        self.tokenizer = tokenizer
+        self.cfg = engine_cfg or EngineConfig()
+        ec = self.cfg
+        if ec.scheduling_policy not in ("fcfs", "priority", "sjf"):
+            raise ValueError(
+                f"unknown scheduling_policy {ec.scheduling_policy!r} "
+                "(expected 'fcfs', 'priority', or 'sjf')"
+            )
+        if ec.kv_dtype not in ("bfloat16", "float32"):
+            raise NotImplementedError(
+                f"kv_dtype={ec.kv_dtype!r} is not ported yet (bfloat16, float32)")
+        self.device = resolve_device(device)
+        if params is None:
+            params = self.adapter.init_params(seed=seed, device=self.device)
+        elif params.device != self.device:
+            raise ValueError(f"params live on {params.device}, engine on {self.device}")
+        self.params = params
+        self.window = self.adapter.window
+
+        self.kv_cfg = KVConfig(
+            num_layers=self.adapter.num_layers,
+            num_kv_heads=self.adapter.num_kv_heads,
+            head_dim=self.adapter.head_dim,
+            block_tokens=ec.page_tokens,  # block == page
+            page_tokens=ec.page_tokens,
+            kv_dtype=ec.kv_dtype,
+            num_kv_buffers=self.adapter.num_kv_buffers,
+        )
+        if ec.num_pages is not None:
+            spec = PoolSpec.from_config(self.kv_cfg, num_pages=ec.num_pages)
+        else:
+            budget = hbm_free_bytes(self.device)
+            if budget is None:
+                budget = 2 << 30  # CPU: 2 GB worth of pages
+            spec = PoolSpec.from_config(
+                self.kv_cfg, hbm_budget_bytes=int(budget * ec.hbm_utilization))
+        self.pool = DevicePagePool(spec, device=self.device)
+        self.k_pools, self.v_pools = self.pool.allocate_arrays()
+        self.manager = KVCacheManager(
+            self.kv_cfg, self.pool, ipc_name=ec.ipc_name, reserve_null_block=True)
+
+        self.max_pages_per_seq = ec.max_model_len // ec.page_tokens
+        # sliding-window models reclaim pages mid-sequence; cached pages
+        # would dangle, so the prefix cache is forced off
+        enable_cache = ec.enable_prefix_caching and not self.window
+        self.prefix_cache = PrefixCache(
+            ec.page_tokens, (ec.max_cached_tokens if enable_cache else 0))
+        self.cache_namespace = self._stable_namespace()
+        self.waiting: list[Sequence] = []
+        self.running: list[Sequence] = []
+        #: sequence mid-way through an interleaved chunked prefill
+        self._prefilling: Sequence | None = None
+        self.finished_outputs: list[RequestOutput] = []
+        self._preempt_count = 0
+        self._step_count = 0
+        self._pb_dispatches = 0
+        self._pb_prompts = 0
+        #: host wall time of the prefill and decode dispatches (each ends in
+        #: a device→host pull, so it covers the device work) and the tokens
+        #: they produced: prompt tokens prefilled, generated tokens kept
+        self.stats = dict(prefill_tokens=0, prefill_seconds=0.0,
+                          decode_tokens=0, decode_seconds=0.0)
+
+    def _stable_namespace(self) -> str:
+        """Prefix-cache namespace: model config + kv config + a weights
+        fingerprint (not ``id(self)``, which collides after GC)."""
+        h = hashlib.blake2b(digest_size=8)
+        h.update(repr(self.model_cfg).encode())
+        h.update(repr(self.kv_cfg).encode())
+        sample = self.params.embed.reshape(-1)[:64].float().cpu().numpy()
+        h.update(sample.tobytes())
+        return h.hexdigest()
+
+    def _dev(self, a, dtype=torch.int32) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+
+    # ------------------------------------------------------------- requests
+
+    def add_request(self, prompt: list[int],
+                    sampling: SamplingParams | None = None,
+                    *, priority: int = 0) -> int:
+        req = Request(next(self._ids), list(prompt),
+                      sampling or SamplingParams(), priority)
+        if len(req.prompt) + req.sampling.max_new_tokens > self.cfg.max_model_len:
+            raise ValueError(
+                f"prompt+max_new_tokens exceeds max_model_len={self.cfg.max_model_len}"
+            )
+        # prompts longer than the largest bucket are served by chunked prefill
+        self._enqueue(Sequence(req))
+        return req.req_id
+
+    # ------------------------------------------------------ queue policies
+
+    def _queue_key(self, seq: Sequence):
+        """Admission sort key under the configured policy; req_id is the
+        arrival ordinal (the fcfs key and the tiebreak everywhere else)."""
+        policy = self.cfg.scheduling_policy
+        if policy == "priority":
+            return (seq.req.priority, seq.req.req_id)
+        if policy == "sjf":
+            return (seq.prompt_len - seq.num_prefilled, seq.req.req_id)
+        return (seq.req.req_id,)
+
+    def _enqueue(self, seq: Sequence) -> None:
+        if self.cfg.scheduling_policy == "fcfs":
+            self.waiting.append(seq)
+            return
+        keys = [self._queue_key(s) for s in self.waiting]
+        self.waiting.insert(bisect.bisect_right(keys, self._queue_key(seq)), seq)
+
+    def _requeue_preempted(self, seq: Sequence) -> None:
+        """fcfs: back to the FRONT (it was admitted once); priority/sjf: to
+        its policy slot."""
+        if self.cfg.scheduling_policy == "fcfs":
+            self.waiting.insert(0, seq)
+        else:
+            self._enqueue(seq)
+
+    def has_unfinished(self) -> bool:
+        return bool(self.waiting or self.running or self._prefilling)
+
+    # ------------------------------------------------------------- scheduling
+
+    def _blocks_needed(self, num_tokens: int) -> int:
+        return -(-num_tokens // self.cfg.page_tokens)
+
+    def _alloc_blocks(self, need: int) -> list[int] | None:
+        """Allocate, reclaiming prefix-cache pages under pressure first."""
+        blocks = self.manager.alloc(need)
+        if blocks is None and self.prefix_cache.num_evictable:
+            evicted = self.prefix_cache.evict(need + 4)
+            if evicted:
+                self.manager.free(evicted)
+                blocks = self.manager.alloc(need)
+        return blocks
+
+    def _ensure_blocks(self, seq: Sequence, num_tokens: int) -> bool:
+        """Grow seq's blocks to cover ``num_tokens`` tokens (all or nothing)."""
+        num_tokens = min(num_tokens, self.cfg.max_model_len)
+        need = self._blocks_needed(num_tokens) - len(seq.blocks)
+        if need <= 0:
+            return True
+        blocks = self._alloc_blocks(need)
+        if blocks is None:
+            return False
+        seq.blocks.extend(blocks)
+        return True
+
+    def _reclaim_slid_pages(self, seq: Sequence) -> None:
+        """Sliding-window models free pages every token of which is below
+        the window of every future position."""
+        if not self.window:
+            return
+        win_start = len(seq.tokens) - self.window
+        if win_start <= 0:
+            return
+        last_dead_page = win_start // self.cfg.page_tokens  # exclusive
+        dead = [b for b in seq.blocks[:last_dead_page] if b is not None]
+        if dead:
+            self.manager.free(dead)
+            for j in range(last_dead_page):
+                seq.blocks[j] = None
+
+    def _free_seq(self, seq: Sequence, cache_kv: bool = True) -> None:
+        seq.blocks = [b for b in seq.blocks if b is not None]
+        if not seq.blocks:
+            return
+        if cache_kv and self.prefix_cache.enabled:
+            # register full pages (prompt AND generated) before releasing;
+            # the final token's KV is never written, so only pages whose
+            # every slot is below len-1 are cacheable
+            n_full = min(
+                (len(seq.tokens) - 1) // self.cfg.page_tokens, len(seq.blocks))
+            if n_full:
+                keys = page_keys(
+                    seq.tokens[: n_full * self.cfg.page_tokens],
+                    self.cfg.page_tokens, self.cache_namespace)
+                self.prefix_cache.insert(keys[:n_full], seq.blocks[:n_full])
+        _retained, to_free = self.prefix_cache.release(seq.blocks)
+        if to_free:
+            self.manager.free(to_free)
+        seq.blocks = []
+
+    def _admit_running(self, need_fn) -> list:
+        """Take the head of the running queue (up to max_batch) and ensure
+        each sequence has blocks for ``need_fn(seq)`` tokens, preempting
+        under pressure.  The scan restarts after every preemption (the
+        victim may sit below the scan index).  Returns the admitted batch."""
+        B = self.cfg.max_batch
+        batch = self.running[:B]
+        i = 0
+        while i < len(batch):
+            if self._ensure_blocks(batch[i], need_fn(batch[i])):
+                i += 1
+                continue
+            if not self._preempt_one():
+                break
+            batch = self.running[:B]
+            i = 0
+        return [s for s in batch if s in self.running]
+
+    def _preempt_one(self) -> bool:
+        """Evict a running sequence back to waiting (recompute): the newest
+        under fcfs/sjf, the worst-priority newest under priority."""
+        if not self.running:
+            return False
+        if self.cfg.scheduling_policy == "priority":
+            seq = max(self.running, key=lambda s: (s.req.priority, s.req.req_id))
+            self.running.remove(seq)
+        else:
+            seq = self.running.pop()
+        self._free_seq(seq)
+        # restart from scratch (keeps greedy decoding deterministic)
+        seq.tokens = list(seq.req.prompt)
+        seq.num_prefilled = 0
+        self._requeue_preempted(seq)
+        self._preempt_count += 1
+        logger.info("preempted request %d under memory pressure", seq.req.req_id)
+        return True
+
+    def _phys_row(self, seq: Sequence) -> np.ndarray:
+        pt = self.manager.page_allocator.page_table
+        row = np.zeros(self.max_pages_per_seq, np.int32)
+        for j, b in enumerate(seq.blocks):
+            # reclaimed (slid-out) pages point at the zero page; the kernels
+            # never read below the window start
+            row[j] = pt[b] if b is not None else 0
+        return row
+
+    def _bucket_len(self, n: int) -> int:
+        for b in self.cfg.prefill_buckets:
+            if n <= b:
+                return b
+        raise ValueError(f"prompt length {n} exceeds largest prefill bucket")
+
+    # ------------------------------------------------------------- stepping
+
+    def _begin_prefill(self, seq: Sequence) -> bool:
+        P = self.cfg.page_tokens
+        plen = seq.prompt_len
+        hits: list[int] = []
+        if self.prefix_cache.enabled:
+            keys = page_keys(seq.req.prompt, P, self.cache_namespace)
+            hits = self.prefix_cache.lookup(keys)
+            if hits and len(hits) * P >= plen:
+                # must compute at least the last token for its logits
+                dropped = hits.pop()
+                _, to_free = self.prefix_cache.release([dropped])
+                if to_free:
+                    self.manager.free(to_free)
+        seq.blocks = list(hits)
+        if not self._ensure_blocks(seq, plen + 1):
+            _, to_free = self.prefix_cache.release(hits)
+            if to_free:
+                self.manager.free(to_free)
+            seq.blocks = []
+            return False
+        seq.num_prefilled = len(hits) * P  # prefill progress (tokens written)
+        return True
+
+    def _prefill_chunk(self, seq: Sequence) -> bool:
+        """Run ONE bucket-sized page-aligned chunk of seq's prompt.  Returns
+        True when the prompt is fully prefilled (first token sampled)."""
+        t0 = time.perf_counter()
+        P = self.cfg.page_tokens
+        plen = seq.prompt_len
+        q_start = seq.num_prefilled
+        phys = self._phys_row(seq)
+        this_len = min(plen - q_start, max(self.cfg.prefill_buckets))
+        T = self._bucket_len(this_len)
+        assert T % P == 0, "prefill buckets must be multiples of page_tokens"
+        tokens = np.zeros(T, np.int32)
+        tokens[:this_len] = seq.req.prompt[q_start : q_start + this_len]
+        positions = q_start + np.arange(T, dtype=np.int32)
+        start_page = q_start // P
+        n_real = -(-this_len // P)
+        chunk_pages = np.zeros(T // P, np.int32)
+        chunk_pages[:n_real] = phys[start_page : start_page + n_real]
+        logits, _, _ = self.adapter.prefill_step(
+            self.params, self._dev(tokens), self._dev(positions),
+            self.k_pools, self.v_pools, self._dev(chunk_pages),
+            self._dev(phys), q_start, this_len,
+        )
+        seq.num_prefilled = q_start + this_len
+        if seq.num_prefilled < plen:
+            logits.sum().item()  # finish the device work inside the timing
+            self._account("prefill", this_len, t0)
+            return False
+        seq.tokens.append(self._sample_first_token(seq, logits))
+        self._account("prefill", this_len, t0)
+        self.running.append(seq)
+        self._check_stops(seq)
+        if seq.finished():  # stop string in the very first token
+            self._finish_seq(seq)
+        return True
+
+    def _collect_prefill_batch(self) -> tuple[list[Sequence], bool]:
+        """Pop a FIFO prefix of the waiting queue whose prompts each fit one
+        bucket, admitting each; stop at a long prompt, an admission failure
+        or capacity.  Also returns whether the queue head failed admission."""
+        ec = self.cfg
+        if ec.prefill_batch < 2:
+            return [], False
+        cap = min(ec.prefill_batch, ec.max_batch - len(self.running))
+        if cap < 2 or len(self.waiting) < 2:
+            return [], False
+        max_bucket = max(ec.prefill_buckets)
+        batch: list[Sequence] = []
+        head_blocked = False
+        while self.waiting and len(batch) < cap:
+            seq = self.waiting[0]
+            if seq.prompt_len > max_bucket:
+                break
+            if not (self._can_admit(seq) and self._begin_prefill(seq)):
+                head_blocked = not batch
+                break
+            self.waiting.pop(0)
+            batch.append(seq)
+        return batch, head_blocked
+
+    def _prefill_chunk_batch(self, seqs: list[Sequence]) -> None:
+        """One batched prefill pass for N begun sequences whose remaining
+        prompts share a bucket.  Identical to serial _prefill_chunk (rows
+        are independent in the kernels)."""
+        t0 = time.perf_counter()
+        P = self.cfg.page_tokens
+        T = self._bucket_len(max(s.prompt_len - s.num_prefilled for s in seqs))
+        N = len(seqs)
+        tokens = np.zeros((N, T), np.int32)
+        positions = np.tile(np.arange(T, dtype=np.int32), (N, 1))
+        chunk_pages = np.zeros((N, T // P), np.int32)
+        page_tables = np.zeros((N, self.max_pages_per_seq), np.int32)
+        q_starts = np.zeros(N, np.int32)
+        true_lens = np.zeros(N, np.int32)
+        for i, seq in enumerate(seqs):
+            q_start = seq.num_prefilled  # page-aligned (prefix-cache hits)
+            this_len = seq.prompt_len - q_start
+            tokens[i, :this_len] = seq.req.prompt[q_start:]
+            positions[i] += q_start
+            phys = self._phys_row(seq)
+            start_page = q_start // P
+            n_real = -(-this_len // P)
+            chunk_pages[i, :n_real] = phys[start_page : start_page + n_real]
+            page_tables[i] = phys
+            q_starts[i] = q_start
+            true_lens[i] = this_len
+        self._pb_dispatches += 1
+        self._pb_prompts += N
+        logits, _, _ = self.adapter.prefill_batch_step(
+            self.params, *map(self._dev, (tokens, positions)),
+            self.k_pools, self.v_pools,
+            *map(self._dev, (chunk_pages, page_tables, q_starts, true_lens)),
+        )
+        firsts = torch.argmax(logits, dim=-1).cpu().numpy()
+        for i, seq in enumerate(seqs):
+            if seq.req.sampling.temperature > 0:
+                firsts[i] = self._sample_first_token(seq, logits[i], row=i)
+        self._account("prefill", int(true_lens.sum()), t0)
+        for i, seq in enumerate(seqs):
+            seq.num_prefilled = seq.prompt_len
+            seq.tokens.append(int(firsts[i]))
+            self.running.append(seq)
+            self._check_stops(seq)
+            if seq.finished():
+                self._finish_seq(seq)
+
+    def _sample_first_token(self, seq: Sequence, logits, row: int = 0) -> int:
+        """The prefill's token with the request's own sampling params,
+        drawn from a generator keyed on (engine step, request seed, batch
+        row): identical engine histories reproduce identical outputs."""
+        sp = seq.req.sampling
+        if sp.temperature <= 0:
+            return int(torch.argmax(logits))
+        dev = logits.device
+        tok = _sample_tokens(
+            logits[None],
+            torch.tensor([sp.temperature], dtype=torch.float32, device=dev),
+            torch.tensor([sp.top_k], dtype=torch.int64, device=dev),
+            torch.tensor([sp.top_p], dtype=torch.float32, device=dev),
+            _generator(dev, self._step_count, sp.seed, row),
+            filters=sp.top_k > 0 or sp.top_p < 1.0,
+        )
+        return int(tok[0])
+
+    def _row_cap(self, seq: Sequence) -> int:
+        return min(self.cfg.max_model_len,
+                   seq.prompt_len + seq.req.sampling.max_new_tokens)
+
+    def _decode_horizon(self, K, tokens0, seq_lens0, page_tables, temps,
+                        top_ks, top_ps, max_lens, filters, sampled):
+        """K decode steps.  seq_lens0 counts tokens whose KV is written; step
+        j consumes input token j at position seq_lens0 + j.  Steps past a
+        row's cap (``max_lens``; 0 for padded rows) are routed to the zero
+        page, where the kernel discards the write, and their lengths are
+        clamped.  Returns the sampled tokens [K, B] on the host."""
+        P = self.cfg.page_tokens
+        B = tokens0.shape[0]
+        raw = seq_lens0[None] + np.arange(K, dtype=np.int32)[:, None] + 1  # [K, B]
+        seq_lens = np.minimum(raw, max_lens[None])
+        positions = np.maximum(seq_lens - 1, 0)
+        slot_pages = np.where(
+            raw > max_lens[None], 0,
+            page_tables[np.arange(B)[None], positions // P])
+        plan = self._dev(np.stack([positions, slot_pages, positions % P, seq_lens]))
+        tables = self._dev(page_tables)
+        dev = self.device
+        temps_t = torch.as_tensor(temps).to(dev)
+        top_ks_t = torch.as_tensor(top_ks, dtype=torch.int64).to(dev)
+        top_ps_t = torch.as_tensor(top_ps).to(dev)
+        gen = _generator(dev, self._step_count) if sampled else None
+        tokens = self._dev(tokens0)
+        out = []
+        for j in range(K):
+            logits, _, _ = self.adapter.decode_step(
+                self.params, tokens, plan[0, j], self.k_pools, self.v_pools,
+                tables, plan[1, j], plan[2, j], plan[3, j],
+            )
+            tokens = _sample_tokens(logits, temps_t, top_ks_t, top_ps_t, gen,
+                                    filters=filters, sampled=sampled)
+            out.append(tokens)
+        return torch.stack(out).cpu().numpy()
+
+    def _do_decode(self) -> None:
+        ec = self.cfg
+        B = ec.max_batch
+        batch = self.running[:B]
+        # adaptive horizon: no step past the batch's nearest cap produces a
+        # kept token, so shrink K (to a power of two) near the caps
+        if ec.adaptive_horizon:
+            needed = min(max(1, self._row_cap(s) - len(s.tokens)) for s in batch)
+            K = min(ec.decode_horizon, 1 << (needed.bit_length() - 1))
+        else:
+            K = ec.decode_horizon
+        batch = self._admit_running(lambda s: len(s.tokens) + K)
+        if not batch:
+            return
+        tokens0 = np.zeros(B, np.int32)
+        seq_lens0 = np.zeros(B, np.int32)
+        page_tables = np.zeros((B, self.max_pages_per_seq), np.int32)
+        temps = np.zeros(B, np.float32)
+        top_ks = np.zeros(B, np.int64)
+        top_ps = np.ones(B, np.float32)
+        max_lens = np.zeros(B, np.int32)  # 0 for padded rows: writes discarded
+        for i, seq in enumerate(batch):
+            tokens0[i] = seq.tokens[-1]
+            seq_lens0[i] = len(seq.tokens) - 1  # KV written so far
+            page_tables[i] = self._phys_row(seq)
+            sp = seq.req.sampling
+            temps[i] = sp.temperature
+            top_ks[i] = sp.top_k
+            top_ps[i] = sp.top_p
+            max_lens[i] = self._row_cap(seq)
+        # only pay the vocab sorts when some row actually filters
+        filters = bool((top_ks > 0).any() or (top_ps < 1.0).any())
+        t0 = time.perf_counter()
+        toks = self._decode_horizon(
+            K, tokens0, seq_lens0, page_tables, temps, top_ks, top_ps,
+            max_lens, filters, bool((temps > 0).any()))
+        kept = 0
+        for i, seq in enumerate(batch):
+            for j in range(K):
+                seq.tokens.append(int(toks[j, i]))
+                kept += 1
+                if seq.finished():
+                    break
+            self._check_stops(seq)
+            self._reclaim_slid_pages(seq)
+            if seq.finished():
+                # trim over-generated tokens beyond the stop point
+                keep = min(seq.num_generated, seq.req.sampling.max_new_tokens)
+                kept -= len(seq.tokens) - (seq.prompt_len + keep)
+                seq.tokens = seq.tokens[: seq.prompt_len + keep]
+                self._finish_seq(seq)
+        self._account("decode", kept, t0)
+
+    def _account(self, kind: str, tokens: int, t0: float) -> None:
+        self.stats[kind + "_tokens"] += tokens
+        self.stats[kind + "_seconds"] += time.perf_counter() - t0
+
+    def _check_stops(self, seq: Sequence) -> None:
+        """Stop-STRING detection: decode the generated tail and finish the
+        sequence when a stop string appears, keeping the text truncated
+        before its earliest occurrence.  Runs once per dispatch; truncation
+        is by text position, so the result equals per-token checking."""
+        sp = seq.req.sampling
+        if (not sp.stop or self.tokenizer is None or seq.stop_hit
+                or seq.num_generated == 0):
+            return
+        text = self.tokenizer.decode(seq.tokens[seq.prompt_len:])
+        hits = [i for i in (text.find(s) for s in sp.stop) if i != -1]
+        if hits:
+            seq.stop_hit = True
+            seq.output_text = text[: min(hits)]
+
+    def _finish_seq(self, seq: Sequence) -> None:
+        self.running.remove(seq)
+        self._free_seq(seq)
+        self.finished_outputs.append(RequestOutput(
+            seq.req.req_id, seq.req.prompt, seq.tokens[seq.prompt_len:],
+            output_text=seq.output_text))
+
+    def _can_admit(self, seq: Sequence) -> bool:
+        """Admission watermark: room for the prompt plus one decode horizon
+        plus a page of margin (prevents admit→grow→preempt churn)."""
+        need = self._blocks_needed(
+            seq.prompt_len + self.cfg.decode_horizon) + 1 - len(seq.blocks)
+        avail = self.manager.available_size() + self.prefix_cache.num_evictable
+        return avail >= need
+
+    def step(self) -> None:
+        """One scheduler iteration: one prefill chunk, or one decode
+        horizon.  A long prompt's chunks interleave with decode (chunk on
+        odd steps, decode on even)."""
+        self._step_count += 1
+        if self._prefilling is not None:
+            if not self.running or self._step_count % 2:
+                if self._prefill_chunk(self._prefilling):
+                    self._prefilling = None
+            else:
+                self._do_decode()
+            return
+        if self.waiting and len(self.running) < self.cfg.max_batch:
+            # burst admission alternates with decode when rows are running
+            if self.running and self._step_count % 2 == 0:
+                self._do_decode()
+                return
+            batch, head_blocked = self._collect_prefill_batch()
+            if len(batch) >= 2:
+                self._prefill_chunk_batch(batch)
+                return
+            if len(batch) == 1:
+                self._prefill_chunk(batch[0])
+                return
+            seq = self.waiting[0]
+            if not head_blocked and self._can_admit(seq) and self._begin_prefill(seq):
+                self.waiting.pop(0)
+                if not self._prefill_chunk(seq):
+                    self._prefilling = seq
+                return
+            if not self.running:
+                # nothing running and nothing admissible: pick up a resize
+                # target via a no-op alloc and wait for operator action
+                self.manager.alloc(0)
+                time.sleep(0.01)
+                return
+        if self.running:
+            self._do_decode()
+
+    # ------------------------------------------------------------- frontends
+
+    def generate(self, prompts: Seq[Seq[int]],
+                 sampling: SamplingParams | None = None) -> list[RequestOutput]:
+        ids = [self.add_request(list(p), sampling) for p in prompts]
+        want = set(ids)
+        while self.has_unfinished() and want - {o.req_id for o in self.finished_outputs}:
+            self.step()
+        by_id = {o.req_id: o for o in self.finished_outputs}
+        return [by_id[i] for i in ids]
+
+    # ------------------------------------------------------------- metrics
+
+    @property
+    def ipc_name(self) -> str | None:
+        """The shm control-plane segment (``kvctl limit`` target)."""
+        tracker = self.manager._tracker
+        return tracker.ipc_name if tracker is not None else None
+
+    def kv_metrics(self) -> dict:
+        out = {
+            "mapped_bytes": self.manager.get_mapped_memory_size(),
+            "in_use_pages": self.manager.page_allocator.num_in_use,
+            "reserved_pages": self.manager.page_allocator.num_reserved,
+            "available_blocks": self.manager.available_size(),
+            "running": len(self.running),
+            "waiting": len(self.waiting),
+            "prefilling": int(self._prefilling is not None),
+            "preemptions": self._preempt_count,
+            "prefix_cache": self.prefix_cache.get_usage(),
+            "throughput": dict(self.stats),
+        }
+        if self.cfg.prefill_batch > 1:
+            out["prefill_batch"] = {
+                "dispatches": self._pb_dispatches,
+                "prompts": self._pb_prompts,
+                "prompts_per_dispatch": (
+                    self._pb_prompts / self._pb_dispatches
+                    if self._pb_dispatches else 0.0),
+            }
+        return out
+
+    def shutdown(self) -> None:
+        self.manager.shutdown()

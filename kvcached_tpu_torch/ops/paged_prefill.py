@@ -1,0 +1,155 @@
+"""Paged prefill (flash) attention, K3.
+
+Port of ``kvcached_tpu/ops/paged_prefill.py``.  Queries are chunks of ``T``
+new tokens starting at global position ``q_start``; keys/values come from
+the sequence's pages, including pages reused from the prefix cache and the
+pages the chunk just wrote.  One code path covers plain prefill
+(``q_start = 0``), prefix-cache hits and chunked prefill.
+
+:func:`paged_prefill_attention_batch` launches ``csrc/paged_prefill.cu`` for
+CUDA tensors and runs :func:`paged_prefill_attention_batch_plain` for CPU
+tensors only; its launches are counted in
+``paged_prefill_attention_batch.launches``.  :func:`paged_prefill_attention`
+is the N=1 view.  Rows are independent in the kernel, so a batch is
+bit-identical to N serial calls; rows with ``kv_len == 0`` give zeros.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+from .paged_attention import (
+    KERNEL_DTYPES,
+    _gather_pages,
+    _layer_index,
+    _masked_softmax_pv,
+    _on_cpu,
+    _op_round,
+    _require,
+    _require_aligned,
+    _require_pools,
+    _stream,
+    _unsupported,
+)
+
+#: query rows (token x GQA head) one CUDA block handles; the GQA group
+#: must divide it
+KERNEL_ROWS = 64
+
+
+def paged_prefill_attention_batch_plain(
+    q, k_pool, v_pool, page_tables, q_starts, kv_lens, layer=0,
+    *, sm_scale=None, window=None,
+):
+    """Plain PyTorch version of K3."""
+    N, T, QH, D = q.shape
+    KH = k_pool.shape[2]
+    G = QH // KH
+    dt = k_pool.dtype
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    layer = int(layer)
+    k = _gather_pages(k_pool[layer], page_tables)  # [N, KH, S, D]
+    v = _gather_pages(v_pool[layer], page_tables)
+    # [N, T, QH, D] -> [N, KH, T*G, D] with row r = t*G + g
+    qg = _op_round(
+        q.reshape(N, T, KH, G, D).permute(0, 2, 1, 3, 4).reshape(N, KH, T * G, D),
+        dt,
+    )
+    s = torch.matmul(qg, k.transpose(-1, -2)) * sm_scale  # [N, KH, R, S]
+    dev = q.device
+    q_pos = q_starts.long()[:, None] + torch.arange(T * G, device=dev)[None] // G
+    kv = torch.arange(k.shape[2], device=dev)[None, None, :]
+    valid = (kv <= q_pos[:, :, None]) & (kv < kv_lens.long()[:, None, None])
+    if window:
+        valid = valid & (kv > q_pos[:, :, None] - window)
+    o = _masked_softmax_pv(s, valid[:, None], v, dt)  # [N, KH, R, D]
+    o = o.reshape(N, KH, T, G, D).permute(0, 2, 1, 3, 4).reshape(N, T, QH, D)
+    return o.to(dt).to(q.dtype)
+
+
+def paged_prefill_attention_batch(
+    q: torch.Tensor,  # [N, T, num_q_heads, head_dim]
+    k_pool: torch.Tensor,  # [L, num_pages, num_kv_heads, page_tokens, head_dim]
+    v_pool: torch.Tensor,
+    page_tables: torch.Tensor,  # [N, max_pages] int32 physical pages per row
+    q_starts: torch.Tensor,  # [N] int32 global position of each row's q[:, 0]
+    kv_lens: torch.Tensor,  # [N] int32 valid tokens (q_start + true chunk len)
+    layer=0,
+    *,
+    sm_scale: float | None = None,
+    window: int | None = None,
+    mla_v_dim: int | None = None,
+    k_scales=None,
+    v_scales=None,
+    logit_softcap: float | None = None,
+) -> torch.Tensor:
+    """K3: causal attention of N prefill chunks against their pages.  The
+    chunks' K/V must already be in the pages (:func:`write_prefill_kv`
+    runs first).  Returns [N, T, num_q_heads, head_dim].
+
+    Replaces the Pallas ``_prefill_kernel``.  Bound on the card by
+    tensor-core operations for long chunks; ``csrc/paged_prefill.cu``
+    runs bf16 pools' Q.K^T and P.V on the tensor cores (``mma.sync``,
+    64-key tiles in shared memory) and skips key tiles past each block's
+    causal limit."""
+    _unsupported(mla_v_dim, k_scales, v_scales, logit_softcap, k_pool.dtype)
+    if _on_cpu(q, k_pool, v_pool, page_tables, q_starts, kv_lens):
+        return paged_prefill_attention_batch_plain(
+            q, k_pool, v_pool, page_tables, q_starts, kv_lens, layer,
+            sm_scale=sm_scale, window=window)
+    L, P, KH, TP, D = _require_pools(k_pool, v_pool)
+    N, T, QH, Dq = q.shape
+    if Dq != D or QH % KH:
+        raise ValueError(f"q {tuple(q.shape)} does not fit pools {tuple(k_pool.shape)}")
+    G = QH // KH
+    if KERNEL_ROWS % G:
+        raise ValueError(f"GQA group {G} must divide {KERNEL_ROWS}")
+    layer = _layer_index(layer, L)
+    dt = k_pool.dtype
+    qc = q.to(dt).contiguous()
+    _require_aligned("K3", qc, k_pool, v_pool)
+    maxp = page_tables.shape[1]
+    _require(page_tables, "page_tables", torch.int32, (N, maxp))
+    _require(q_starts, "q_starts", torch.int32, (N,))
+    _require(kv_lens, "kv_lens", torch.int32, (N,))
+    if window is not None and int(window) <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    out = torch.empty_like(qc)
+    lib = _build.load("paged_prefill")
+    rc = lib.kvc_paged_prefill(
+        KERNEL_DTYPES[dt], qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        page_tables.data_ptr(), q_starts.data_ptr(), kv_lens.data_ptr(),
+        out.data_ptr(), N, layer, P, KH, G, TP, maxp, T, int(window or 0),
+        float(sm_scale), _stream(q),
+    )
+    _build.check(rc, "paged_prefill")
+    paged_prefill_attention_batch.launches += 1
+    return out.to(q.dtype)
+
+
+paged_prefill_attention_batch.launches = 0
+
+
+def paged_prefill_attention(
+    q: torch.Tensor,  # [T, num_q_heads, head_dim]
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # [max_pages] int32
+    q_start,
+    kv_len,
+    layer=0,
+    **kw,
+) -> torch.Tensor:
+    """N=1 view of :func:`paged_prefill_attention_batch`: [T, QH, D]."""
+    dev = q.device
+    q_starts = torch.as_tensor(q_start, dtype=torch.int32, device=dev).reshape(1)
+    kv_lens = torch.as_tensor(kv_len, dtype=torch.int32, device=dev).reshape(1)
+    return paged_prefill_attention_batch(
+        q[None], k_pool, v_pool, page_table[None], q_starts, kv_lens, layer, **kw
+    )[0]
