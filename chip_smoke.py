@@ -11,30 +11,42 @@ Phases (each prints its own lines; any failure exits nonzero):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: the three CUDA kernels are compiled from ``kvcached_tpu_torch/csrc``
-   (one nvcc per source, in parallel), with ptxas' register counts;
-3. kernels: K1, K1r, K2 and K3 against their plain PyTorch versions on the
-   card at Llama-3-8B shapes (B=8, KH=8, QH=32, D=128, 64-token pages,
+2. build: the four CUDA kernel sources are compiled from
+   ``kvcached_tpu_torch/csrc`` (one nvcc per source, in parallel), with
+   ptxas' register counts;
+3. kernels: K1, K1r, K2, K3 and K4 against their plain PyTorch versions on
+   the card at Llama-3-8B shapes (B=8, KH=8, QH=32, D=128, 64-token pages,
    contexts 512-2048 on shuffled pages, a windowed case, a K3 batch with
-   q_start > 0 and a kv_len = 0 row): pool writes bit-exact, outputs within
-   2e-2 at bf16 and 1e-4 at float32 (TF32 off); each kernel's device time
-   (calls back to back) and its time a call from the host, the plain
-   version's and SDPA's, beside the kernel's bound;
+   q_start > 0 and a kv_len = 0 row, K4 with T=5 fed tokens, a row
+   overhanging its table and a row whose writes are all discarded): pool
+   writes bit-exact, outputs within 2e-2 at bf16 and 1e-4 at float32 (TF32
+   off); each kernel's device time (calls back to back) and its time a call
+   from the host, the plain version's and SDPA's, beside the kernel's bound;
 4. engine: ``LLMEngine`` serves Llama-3-8B at full width (32 layers, bf16,
    weights drawn on the card from a seed) for 8 requests: a prefix-cache
    hit, a prompt longer than the largest prefill bucket, batched prefill,
    greedy rows and a seeded sampled row, 64 new tokens each.  Every kernel
    launch counter is zeroed just before and read just after; each must be
-   > 0.  The kernel path's last-position logits are held against the plain
-   path's on the card (norm-relative error <= 1e-2 at float32; the bf16
-   error is printed beside bf16's own distance from float32);
+   > 0.  The kernel path's last-position logits (prefill, decode, and a
+   verify step of T fed tokens) are held against the plain path's on the
+   card (norm-relative error <= 1e-2 at float32; the bf16 error is printed
+   beside bf16's own distance from float32);
 5. elastic: mid-run, a child process shrinks and then grows the pool through
    ``kvcached_tpu_torch.shm.update_kv_cache_limit``; ``kv_metrics`` must
    show both, and the outputs must be md5-identical to an unconstrained run;
 6. real weights: the committed tinyadd (Llama) and winadd (Qwen2, windowed)
    checkpoints through the port's loader at float32, served greedily by the
    kernel path on the card and by the plain path on the CPU: identical
-   tokens; winadd's exact match over 32 held-out examples.
+   tokens, with and without speculative decoding (winadd's window runs
+   through K4); winadd's exact match over 32 held-out examples;
+7. speculative decoding at full width: (a) Llama-3-8B at float32 serves 4
+   requests x 32 tokens with ``spec_decode=True, spec_exact=True`` and
+   without: identical greedy tokens; (b) at bf16, 8 requests x 64 tokens
+   (half of the prompts repetitive) with and without spec decode, then
+   each half alone: decode tok/s, tokens per verify iteration, and the
+   device busy share of one spec dispatch.  The launch counters are zeroed
+   just before the mixed spec run and read just after; K4's must be > 0.
+   Phase 7 runs before phase 6, while the 8B weights are loaded.
 
 The line before last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.  ``--rehearse`` runs the control flow
@@ -47,6 +59,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -61,12 +74,12 @@ HOLD_CYCLES = 60_000_000  # ~30 ms at the H100's clocks: longer than any enqueue
 CARD = dict(
     B=8, KH=8, QH=32, D=128, TP=64, L=4, contexts=(512, 2048, 768, 1536, 1024, 1792, 640, 1280),
     window=1024, prefill_T=512, model="llama3_8b", max_new=64, shared_prefix=256,
-    buckets=(256, 512), long_prompt=700, iters=20,
+    buckets=(256, 512), long_prompt=700, iters=20, spec_T=5, spec_new_exact=32,
 )
 REHEARSE = dict(
     B=3, KH=2, QH=4, D=128, TP=16, L=2, contexts=(40, 70, 23), window=24,
     prefill_T=32, model="toy", max_new=48, shared_prefix=32, buckets=(32, 64),
-    long_prompt=90, iters=2,
+    long_prompt=90, iters=2, spec_T=5, spec_new_exact=8,
 )
 
 
@@ -141,6 +154,28 @@ def time_ms(torch, fn, iters, hold=True):
     e.record()
     e.synchronize()
     return s.elapsed_time(e) / iters
+
+
+def _dev_time(e):
+    """A profiler event's own device time (us), across torch versions."""
+    return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+
+def kernel_parts(torch, fn, iters):
+    """Device ms per call of each CUDA kernel that ``fn`` launches, from
+    torch.profiler over ``iters`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    name = lambda key: re.sub(r"^void |\(anonymous namespace\)::", "", key).split("<")[0].split("(")[0]  # noqa: E731
+    return {name(e.key): round(_dev_time(e) / 1e3 / iters, 4) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and _dev_time(e) > 0}
 
 
 def bound(bytes_, flops):
@@ -349,6 +384,71 @@ def kernel_prefill(torch, ops, F, case, dtype, window, timed):
     return res
 
 
+def kernel_verify(torch, ops, F, case, dtype, window, timed):
+    """K4: T fed tokens per row at the case's contexts (seq_len includes
+    them); the longest row overhangs its table by 2 < T tokens (those two
+    slots discarded, as the engine routes them) and one row's writes are
+    all discarded.  Every query of this case lies inside its table."""
+    S = case.S
+    B, KH, QH, D, TP, L, T = S["B"], S["KH"], S["QH"], S["D"], S["TP"], S["L"], S["spec_T"]
+    dev, width = case.dev, case.maxp * S["TP"]
+    sl = case.seq_lens.clone()
+    sl[int(torch.argmax(sl))] = width + 2
+    pos = sl.long()[:, None] - T + torch.arange(T, device=dev)[None]  # [B, T]
+    inside = pos < width
+    pages = case.page_tables.gather(1, pos.clamp(max=width - 1) // TP)
+    slot_pages = torch.where(inside, pages, torch.zeros_like(pages)).contiguous()
+    slot_pages[2] = 0
+    slot_offsets = (pos % TP).to(torch.int32)
+    kp, vp = case.pools(dtype)
+    q = case.randn((B, T, QH, D), dtype)
+    kn, vn = case.randn((B, T, KH, D), dtype), case.randn((B, T, KH, D), dtype)
+    args = (case.page_tables, sl)
+    slots = (slot_pages, slot_offsets)
+    kp2, vp2 = kp.clone(), vp.clone()
+    out_k, _, _ = ops.paged_attention_verify(q, kp, vp, *args, 1, kn, vn, *slots, window=window)
+    out_p, _, _ = ops.paged_attention_verify_plain(q, kp2, vp2, *args, 1, kn, vn, *slots,
+                                                   window=window)
+    torch.cuda.synchronize()
+    res = dict(pools_bit_exact=bool(torch.equal(kp, kp2) and torch.equal(vp, vp2)),
+               max_abs_err=_err(torch, out_k[inside], out_p[inside]))
+    if not timed:
+        return res
+    it = S["iters"]
+    cyc = iter(range(10 ** 9))
+    lay = lambda: next(cyc) % L  # noqa: E731
+    k4 = lambda: ops.paged_attention_verify(  # noqa: E731
+        q, kp, vp, *args, lay(), kn, vn, *slots, window=window)
+    res["ms"], res["host_ms"] = time_ms(torch, k4, it), time_ms(torch, k4, it, hold=False)
+    res["parts"] = kernel_parts(torch, k4, it)
+    res["plain_ms"] = time_ms(torch, lambda: ops.paged_attention_verify_plain(
+        q, kp, vp, *args, lay(), kn, vn, *slots, window=window), it)
+    # work this data needs: visible (query, key) pairs, each row's keys read
+    # once, q / the fed K,V / tables read, the output and the fed tokens written
+    kv = torch.arange(width, device=dev)[None, None]
+    vis = (kv <= pos[:, :, None]) & (kv < sl.long()[:, None, None])
+    if window:
+        vis &= kv > pos[:, :, None] - window
+    pairs = int(vis.sum()) * QH
+    keys = int(vis.any(dim=1).sum())
+    isz = kp.element_size()
+    written = int((slot_pages != 0).sum())
+    res["bound_ms"], res["bound_by"] = bound(
+        2 * keys * KH * D * isz + 2 * B * T * QH * D * isz
+        + 2 * (B * T + written) * KH * D * isz + B * case.maxp * 4 + 3 * B * T * 4,
+        4 * D * pairs)
+    gathered = []
+    for layer in range(L):
+        k = kp[layer][case.page_tables.long()].permute(0, 2, 1, 3, 4).reshape(B, KH, width, D)
+        v = vp[layer][case.page_tables.long()].permute(0, 2, 1, 3, 4).reshape(B, KH, width, D)
+        gathered.append((k.contiguous(), v.contiguous()))
+    q4 = q.transpose(1, 2).contiguous()
+    mask = vis[:, None]
+    res["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, *gathered[lay()], attn_mask=mask, enable_gqa=True), it)
+    return res
+
+
 def phase_kernels(torch, ops, S, dev):
     import torch.nn.functional as F
 
@@ -361,7 +461,8 @@ def phase_kernels(torch, ops, S, dev):
         for window in (None, S["window"]):
             d = kernel_decode(torch, ops, F, case, dtype, window, timed and window is None)
             p = kernel_prefill(torch, ops, F, case, dtype, window, timed and window is None)
-            for name, r in (("K1", d["K1"]), ("K1r", d["K1r"]), ("K3", p)):
+            v = kernel_verify(torch, ops, F, case, dtype, window, timed and window is None)
+            for name, r in (("K1", d["K1"]), ("K1r", d["K1r"]), ("K3", p), ("K4", v)):
                 ok = r["max_abs_err"] <= tol and r.get("pools_bit_exact", True) \
                     and r.get("kv_len0_row_zero", True)
                 log(f"[kernels] {name} {tag} window={window}: max_abs_err="
@@ -379,7 +480,9 @@ def phase_kernels(torch, ops, S, dev):
     for name, r in rows.items():
         log(f"[kernels] {name}: {r['ms']:.4f} ms on the device, {r['host_ms']:.4f} ms a "
             f"call from the host (plain {r['plain_ms']:.4f}, library "
-            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']})")
+            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']})"
+            + (f"; device ms per call by kernel {json.dumps(r['parts'])}"
+               if "parts" in r else ""))
     return rows
 
 
@@ -399,16 +502,21 @@ def serve(eng, requests):
 
 def last_logits(torch, cfg, params, S, dev, reference):
     """Last-position logits of a two-chunk prefill (the second chunk at
-    q_start = one bucket) and of one decode step after it, through the
-    kernels or (``reference``) through their plain versions, on fresh
-    pools of the model's dtype."""
-    from kvcached_tpu_torch.models.llama import llama_decode_step, llama_prefill_step
+    q_start = one bucket), of one decode step after it, and of one verify
+    step of spec_T fed tokens after that, through the kernels or
+    (``reference``) through their plain versions, on fresh pools of the
+    model's dtype."""
+    from kvcached_tpu_torch.models.llama import (
+        llama_decode_step,
+        llama_prefill_step,
+        llama_verify_step,
+    )
 
-    TP, T = S["TP"], max(S["buckets"])
+    TP, T, Tv = S["TP"], max(S["buckets"]), S["spec_T"]
     tail = T // 4 + 9
     T2 = next(b for b in S["buckets"] if b >= tail)
     plen = T + tail
-    n_pages = -(-(plen + 1) // TP)
+    n_pages = -(-(plen + 1 + Tv) // TP)
     shape = (cfg.num_layers, n_pages + 1, cfg.num_kv_heads, TP, cfg.head_dim)
     g = torch.Generator(device=dev).manual_seed(3)
     prompt = torch.randint(0, cfg.vocab_size, (plen,), generator=g, device=dev,
@@ -431,7 +539,12 @@ def last_logits(torch, cfg, params, S, dev, reference):
         params, cfg, prompt[:1], one(plen), kp, vp, table[None],
         one(int(table[plen // TP])), one(plen % TP), one(plen + 1),
         reference_attention=reference)
-    return lg_prefill, lg_decode[0]
+    vpos = plen + 1 + torch.arange(Tv, dtype=torch.int32, device=dev)
+    lg_verify, _, _ = llama_verify_step(
+        params, cfg, prompt[None, 1:Tv + 1], vpos[None], kp, vp, table[None],
+        table[vpos // TP][None].contiguous(), (vpos % TP)[None], one(plen + 1 + Tv),
+        reference_attention=reference)
+    return lg_prefill, lg_decode[0], lg_verify[0, -1]
 
 
 def logits_check(torch, cfg, params, S, dev):
@@ -457,19 +570,20 @@ def logits_check(torch, cfg, params, S, dev):
         kern = last_logits(torch, c, p, S, dev, False)
         plain = last_logits(torch, c, p, S, dev, True)
         logits[tag] = plain
-        for what, a, b in zip(("prefill", "decode"), kern, plain):
+        for what, a, b in zip(("prefill", "decode", "verify"), kern, plain):
             out[f"{tag}_{what}"] = rel(a, b)
         del p
-    for i, what in enumerate(("prefill", "decode")):
+    for i, what in enumerate(("prefill", "decode", "verify")):
         out[f"bf16_vs_f32_{what}"] = rel(logits["bf16"][i], logits["f32"][i])
     return out
 
 
-def profile_decode(torch, eng, rand, sp):
+def profile_decode(torch, eng, rand, sp, spec=False):
     """Device busy share of one decode dispatch (a full batch, the decode
-    horizon of steps): the sum of torch.profiler's CUDA kernel times over
-    the host wall time (the profiler's own host cost included).  Launches
-    here come after the main path's counts were read."""
+    horizon of steps, or with ``spec`` the spec horizon of verify
+    iterations): the sum of torch.profiler's CUDA kernel times over the
+    host wall time (the profiler's own host cost included).  Launches here
+    come after the main path's counts were read."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(eng.cfg.max_batch):
@@ -479,23 +593,22 @@ def profile_decode(torch, eng, rand, sp):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng._do_decode()
+        (eng._do_spec_decode if spec else eng._do_decode)()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     from torch.autograd import DeviceType
 
-    dev_time = lambda e: getattr(e, "self_device_time_total", 0) or getattr(  # noqa: E731
-        e, "self_cuda_time_total", 0)
     # kernel events only: an operator's own row repeats its kernels' time
     ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and dev_time(e) > 0]
-    ev.sort(key=dev_time, reverse=True)
+          if e.device_type == DeviceType.CUDA and _dev_time(e) > 0]
+    ev.sort(key=_dev_time, reverse=True)
     while eng.has_unfinished():
         eng.step()
     return dict(
-        rows=eng.cfg.max_batch, steps=eng.cfg.decode_horizon, wall_ms=wall * 1e3,
-        device_ms=sum(dev_time(e) for e in ev) / 1e3,
-        top=[(e.key[:60], round(dev_time(e) / 1e3, 3)) for e in ev[:6]])
+        rows=eng.cfg.max_batch, wall_ms=wall * 1e3,
+        steps=eng.cfg.spec_horizon if spec else eng.cfg.decode_horizon,
+        device_ms=sum(_dev_time(e) for e in ev) / 1e3,
+        top=[(e.key[:60], round(_dev_time(e) / 1e3, 3)) for e in ev[:6]])
 
 
 def phase_engine(torch, ops, S, dev, rehearse):
@@ -533,7 +646,7 @@ def phase_engine(torch, ops, S, dev, rehearse):
     ops.reset_launch_counts()  # --- the main path starts here
     out1 = serve(eng, wave1)
     eng.stats.update(prefill_tokens=0, prefill_seconds=0.0, decode_tokens=0,
-                     decode_seconds=0.0)
+                     decode_seconds=0.0, decode_steps=0)
     t0 = time.perf_counter()
     out2 = serve(eng, wave2)
     wall = time.perf_counter() - t0
@@ -568,12 +681,14 @@ def phase_engine(torch, ops, S, dev, rehearse):
     rels = logits_check(torch, cfg, params, S, dev)
     log(f"[engine] last-position logits, kernel path vs plain path on {dev}, "
         f"norm-relative error: float32 prefill {rels['f32_prefill']:.3e} decode "
-        f"{rels['f32_decode']:.3e} (tol {LOGITS_REL_TOL}); bf16 prefill "
-        f"{rels['bf16_prefill']:.3e} decode {rels['bf16_decode']:.3e} (bf16 plain "
+        f"{rels['f32_decode']:.3e} verify {rels['f32_verify']:.3e} (tol "
+        f"{LOGITS_REL_TOL}); bf16 prefill {rels['bf16_prefill']:.3e} decode "
+        f"{rels['bf16_decode']:.3e} verify {rels['bf16_verify']:.3e} (bf16 plain "
         f"path vs float32 plain path: prefill {rels['bf16_vs_f32_prefill']:.3e} "
-        f"decode {rels['bf16_vs_f32_decode']:.3e})")
-    require(max(rels["f32_prefill"], rels["f32_decode"]) <= LOGITS_REL_TOL,
-            f"logits disagree: {rels}")
+        f"decode {rels['bf16_vs_f32_decode']:.3e} verify "
+        f"{rels['bf16_vs_f32_verify']:.3e})")
+    require(max(rels["f32_prefill"], rels["f32_decode"], rels["f32_verify"])
+            <= LOGITS_REL_TOL, f"logits disagree: {rels}")
     tok_s = dict(prefill=th["prefill_tokens"] / max(th["prefill_seconds"], 1e-9),
                  decode=th["decode_tokens"] / max(th["decode_seconds"], 1e-9))
     return cfg, params, counts, tok_s
@@ -671,6 +786,120 @@ def phase_elastic(torch, cfg, params, S, dev, rehearse):
 
 
 # ---------------------------------------------------------------------------
+# 7. speculative decoding at full width
+# ---------------------------------------------------------------------------
+
+
+def phase_spec(torch, ops, cfg, params, S, dev, rehearse):
+    """(a) token exactness at float32, (b) speed at bf16, with K4's launches
+    counted over the mixed spec run.  Returns that run's launch counts and
+    every run's decode tok/s."""
+    import dataclasses
+
+    import numpy as np
+
+    from kvcached_tpu_torch.engine import EngineConfig, LLMEngine, SamplingParams
+    from kvcached_tpu_torch.models.llama import LlamaModel
+
+    rng = np.random.default_rng(4)
+    V, TP, B0 = cfg.vocab_size, S["TP"], max(S["buckets"])
+    rand = lambda n: [int(t) for t in rng.integers(0, V, n)]  # noqa: E731
+    # a repetitive prompt: a random phrase of `period` tokens, repeated
+    rep = lambda n, period: (rand(period) * (n // period + 1))[:n]  # noqa: E731
+
+    def make(c, p, spec, num_pages):
+        return LLMEngine(c, EngineConfig(
+            max_batch=8, max_model_len=2048 if not rehearse else 256, page_tokens=TP,
+            decode_horizon=8, prefill_buckets=S["buckets"], num_pages=num_pages,
+            kv_dtype=c.dtype, prefill_batch=4, spec_decode=spec,
+            spec_exact=spec and c.dtype == "float32"), params=p, device=dev)
+
+    # (a) float32: the verify forward and the decode forward give the same
+    # greedy tokens
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = LlamaModel(c32, params.embed.float(), {k: v.float() for k, v in params.layers.items()},
+                     params.final_norm.float(), params.lm_head.float())
+    prompts = [rep(B0 // 4, 12), rand(B0 // 3), rep(B0 // 8, 7), rand(B0 // 5)]
+    sp = SamplingParams(max_new_tokens=S["spec_new_exact"])
+    outs = {}
+    for spec in (False, True):
+        eng = make(c32, p32, spec, 64)
+        outs[spec] = serve(eng, [(p, sp) for p in prompts])
+        m = eng.kv_metrics().get("spec")
+        eng.shutdown()
+        del eng
+    del p32
+    same = outs[True] == outs[False]
+    log(f"[spec] (a) {S['model']} float32, {len(prompts)} requests x "
+        f"{S['spec_new_exact']} tokens: spec decode (spec_exact) vs plain decode "
+        f"greedy tokens identical: {same}; spec {json.dumps(m)}")
+    require(same, "float32 spec decode changed greedy tokens")
+    require(m["dispatches"] > 0, "the float32 spec run dispatched no verify")
+
+    # (b) bf16 speed: the mixed batch (the main path), then its repetitive
+    # and its random half alone: prompt lookup drafts well only where the
+    # text repeats, and a closed batch ends with its slowest rows
+    halves = dict(
+        repetitive=[rep(n, per) for n, per in ((B0 // 2, 16), (B0 // 3, 9), (B0 // 4, 24),
+                                               (B0 // 5, 5))],
+        random=[rand(n) for n in (B0 // 2, B0 // 3, B0 // 4, B0 // 5)])
+    sets = dict(mixed=halves["repetitive"] + halves["random"], **halves)
+    sp = SamplingParams(max_new_tokens=S["max_new"])
+    res = {}
+    for name, prompts in sets.items():
+        for spec in (False, True):
+            main = name == "mixed" and spec
+            eng = make(cfg, params, spec, 320 if not rehearse else 96)
+            if main:
+                ops.reset_launch_counts()  # --- the spec path starts here
+            outs = serve(eng, [(p, sp) for p in prompts])
+            if main:
+                counts = ops.launch_counts()  # --- and ends here
+            m = eng.kv_metrics()
+            th = m["throughput"]
+            r = res[name, spec] = dict(
+                outs=outs, spec=m.get("spec"), prof=None,
+                decode=th["decode_tokens"] / max(th["decode_seconds"], 1e-9),
+                step_ms=1e3 * th["decode_seconds"] / max(th["decode_steps"], 1))
+            if name == "mixed" and not rehearse:
+                r["prof"] = profile_decode(torch, eng, rand, sp, spec=spec)
+            eng.shutdown()
+            del eng
+        plain, spec_r = res[name, False], res[name, True]
+        ms = spec_r["spec"]
+        agree = sum(a == b for a, b in zip(spec_r["outs"], plain["outs"]))
+        log(f"[spec] (b) {S['model']} {cfg.dtype}, {name} prompts, {len(prompts)} "
+            f"requests x {S['max_new']} tokens: decode {plain['decode']:.1f} tok/s "
+            f"plain, {spec_r['decode']:.1f} tok/s spec; host wall {plain['step_ms']:.2f} "
+            f"ms a decode step, {spec_r['step_ms']:.2f} ms a verify iteration; "
+            f"{ms['dispatches']} spec "
+            f"dispatches, {ms['tokens_per_dispatch']:.2f} tokens per dispatch, "
+            f"{ms['tokens_per_iteration']:.3f} tokens per row per verify iteration; "
+            f"{agree}/{len(prompts)} requests token-identical to plain decode (bf16 "
+            f"is not exact)")
+    log(f"[spec] kernel launches on the spec path (mixed prompts): {json.dumps(counts)}")
+    for spec, what in ((False, "decode dispatch"), (True, "spec dispatch")):
+        prof = res["mixed", spec]["prof"]
+        if prof:
+            log(f"[spec] one {what} ({prof['rows']} rows x {prof['steps']} "
+                f"{'verify iterations' if spec else 'steps'}) under torch.profiler: "
+                f"wall {prof['wall_ms']:.2f} ms, device busy {prof['device_ms']:.2f} ms "
+                f"({100 * prof['device_ms'] / prof['wall_ms']:.1f}%), "
+                f"{prof['device_ms'] / prof['steps']:.2f} ms device per "
+                f"{'iteration' if spec else 'step'}, top kernels {json.dumps(prof['top'])}")
+    require(all(len(o) == S["max_new"] for r in res.values() for o in r["outs"]),
+            "every request yields max_new tokens")
+    require(all(0 <= t < V for r in res.values() for o in r["outs"] for t in o),
+            "tokens inside the vocabulary")
+    require(all(r["spec"]["dispatches"] > 0 for (_, spec), r in res.items() if spec),
+            "a spec run dispatched no verify")
+    if not rehearse:
+        require(counts["K4"] > 0, "K4 was never launched on the spec path")
+    return counts, {f"{name} {'spec' if spec else 'plain'}": r["decode"]
+                    for (name, spec), r in res.items()}
+
+
+# ---------------------------------------------------------------------------
 # 6. real weights
 # ---------------------------------------------------------------------------
 
@@ -714,21 +943,26 @@ def phase_real_weights(torch, dev, rehearse):
         prompts = [tok.encode(p) for p, _ in pairs]
         sp = SamplingParams(max_new_tokens=6, stop_token_ids=(tok.eos_token_id,))
         toks = {}
-        for where in (dev, torch.device("cpu")):
-            cfg, params = params_from_hf(ckpt, dtype="float32", device=where)
-            eng = LLMEngine(cfg, EngineConfig(
-                max_batch=8, decode_horizon=2, num_pages=128, kv_dtype="float32",
-                adaptive_horizon=False, **shape), params=params, device=where)
-            toks[where.type] = serve(eng, [(p, sp) for p in prompts])
-            eng.shutdown()
-        same = toks[dev.type] == toks["cpu"]
-        exact = sum(tok.decode(t) == a for t, (_, a) in zip(toks[dev.type], pairs))
-        log(f"[real] {name} ({cfg.num_layers} layers, window {cfg.sliding_window}, "
-            f"rope {cfg.rope_scaling}, bias {cfg.attention_bias}): kernel path "
-            f"({dev}) vs plain path (cpu) tokens identical: {same}; exact match "
-            f"{exact}/{len(pairs)}")
-        require(same, f"{name}: kernel-path tokens differ from the plain path")
-        result[name] = f"{exact}/{len(pairs)}"
+        for spec in (False, True):
+            for where in (dev, torch.device("cpu")):
+                cfg, params = params_from_hf(ckpt, dtype="float32", device=where)
+                eng = LLMEngine(cfg, EngineConfig(
+                    max_batch=8, decode_horizon=2, num_pages=128, kv_dtype="float32",
+                    adaptive_horizon=False, spec_decode=spec, **shape),
+                    params=params, device=where)
+                toks[where.type, spec] = serve(eng, [(p, sp) for p in prompts])
+                eng.shutdown()
+            same = toks[dev.type, spec] == toks["cpu", spec]
+            exact = sum(tok.decode(t) == a for t, (_, a) in zip(toks[dev.type, spec], pairs))
+            log(f"[real] {name} ({cfg.num_layers} layers, window {cfg.sliding_window}, "
+                f"rope {cfg.rope_scaling}, bias {cfg.attention_bias}), spec_decode="
+                f"{spec}: kernel path ({dev}) vs plain path (cpu) tokens identical: "
+                f"{same}; exact match {exact}/{len(pairs)}")
+            require(same, f"{name} spec_decode={spec}: kernel-path tokens differ "
+                    "from the plain path")
+            result[name] = f"{exact}/{len(pairs)}"
+        log(f"[real] {name}: spec decode vs plain decode tokens identical on {dev}: "
+            f"{toks[dev.type, True] == toks[dev.type, False]}")
     return result
 
 
@@ -766,10 +1000,13 @@ def main(argv) -> int:
         return 4
     cfg, params, counts, tok_s = phase_engine(torch, ops, S, dev, rehearse)
     phase_elastic(torch, cfg, params, S, dev, rehearse)
+    spec_counts, spec_tok_s = phase_spec(torch, ops, cfg, params, S, dev, rehearse)
+    counts["K4"] = spec_counts["K4"]
     del params
     real = phase_real_weights(torch, dev, rehearse)
-    log(f"[done] phases 3-6 in {time.perf_counter() - t0:.1f} s; engine tok/s "
-        f"{json.dumps(tok_s)}; winadd exact {real['winadd']}; card {smi}")
+    log(f"[done] phases 3-7 in {time.perf_counter() - t0:.1f} s; engine tok/s "
+        f"{json.dumps(tok_s)}; spec decode tok/s {json.dumps(spec_tok_s)}; winadd "
+        f"exact {real['winadd']}; card {smi}")
     if rehearse:
         log("[done] rehearsal only: no result")
         return 3
@@ -782,6 +1019,8 @@ def main(argv) -> int:
                "kvcached_tpu/ops/paged_attention.py:1157"),
         "K3": ("paged_prefill_attention_batch", "paged_prefill.cu",
                "kvcached_tpu/ops/paged_prefill.py:35"),
+        "K4": ("paged_attention_verify", "paged_verify.cu",
+               "kvcached_tpu/ops/paged_attention.py:661"),
     }
     kernels = []
     for k, (fn, src, replaces) in meta.items():

@@ -38,27 +38,23 @@
 
 namespace {
 
-constexpr int D = 128;     // head_dim; one thread per lane
-constexpr int THREADS = D;
-constexpr int ROWS = 64;   // query rows (token x group head) per block
-constexpr int TILE = 32;   // keys staged per step
+using namespace kvc;
 
-constexpr size_t kSmemBytes =
-    sizeof(float) * ((size_t)ROWS * D + (size_t)TILE * (D + 1) +
-                     (size_t)TILE * D + (size_t)ROWS * TILE + 3 * ROWS);
+constexpr int D = kHeadDim;     // one thread per lane
+constexpr int THREADS = kThreads;
+constexpr int ROWS = kF32Rows;  // query rows (token x group head) per block
+constexpr int TILE = kF32Keys;  // keys staged per step
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
-    const T* __restrict__ q,              // [N, Tq, KH*G, D]
-    const T* __restrict__ k_pool,         // [L, P, KH, TP, D]
-    const T* __restrict__ v_pool,
+    const float* __restrict__ q,          // [N, Tq, KH*G, D]
+    const float* __restrict__ k_pool,     // [L, P, KH, TP, D]
+    const float* __restrict__ v_pool,
     const int* __restrict__ page_tables,  // [N, maxp]
     const int* __restrict__ q_starts,     // [N]
     const int* __restrict__ kv_lens,      // [N]
-    T* __restrict__ out,                  // [N, Tq, KH*G, D]
+    float* __restrict__ out,              // [N, Tq, KH*G, D]
     int layer, int num_pages, int KH, int G, int TP, int maxp, int Tq,
     int window, float sm_scale) {
-  using namespace kvc;
   extern __shared__ float smem[];
   float* q_s = smem;                       // [ROWS][D]
   float* k_s = q_s + ROWS * D;             // [TILE][D + 1]
@@ -79,7 +75,7 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
 
   for (int r = 0; r < rows; ++r) {
     const int t = t_begin + r / G, g = r % G;
-    q_s[r * D + d] = to_f<T>(q[(((size_t)n * Tq + t) * QH + h * G + g) * D + d]);
+    q_s[r * D + d] = q[(((size_t)n * Tq + t) * QH + h * G + g) * D + d];
   }
   if (d < ROWS) {
     m_s[d] = -INFINITY;
@@ -108,57 +104,15 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
         const int pi = min(pos / TP, maxp - 1);
         const size_t src = base + (size_t)row_pages[pi] * page_stride +
                            (size_t)(pos % TP) * D + d;
-        k_s[t * (D + 1) + d] = to_f<T>(k_pool[src]);
-        v_s[t * D + d] = to_f<T>(v_pool[src]);
+        k_s[t * (D + 1) + d] = k_pool[src];
+        v_s[t * D + d] = v_pool[src];
       }
     }
     __syncthreads();
-    for (int i = d; i < ROWS * TILE; i += THREADS) {
-      const int r = i / TILE, t = i % TILE;
-      float s = -INFINITY;
-      if (r < rows && t < nk) {
-        const int kv = t0 + t;
-        const int qp = q_start + t_begin + r / G;
-        if (kv <= qp && kv < kv_len && (window <= 0 || kv > qp - window)) {
-          float dot = 0.f;
-          const float* qr = q_s + r * D;
-          const float* kr = k_s + t * (D + 1);
-#pragma unroll 16
-          for (int e = 0; e < D; ++e) dot = fmaf(qr[e], kr[e], dot);
-          s = dot * sm_scale;
-        }
-      }
-      p_s[i] = s;
-    }
-    __syncthreads();
-    if (d < rows) {
-      float mt = -INFINITY;
-      for (int t = 0; t < nk; ++t) mt = fmaxf(mt, p_s[d * TILE + t]);
-      const float m_new = fmaxf(m_s[d], mt);
-      // a row with nothing visible yet keeps m = -inf and scale 1
-      a_s[d] = m_new == -INFINITY ? 1.f : expf(m_s[d] - m_new);
-      m_s[d] = m_new;
-    }
-    __syncthreads();
-    for (int i = d; i < ROWS * TILE; i += THREADS) {
-      const float s = p_s[i];
-      p_s[i] = s == -INFINITY ? 0.f : expf(s - m_s[i / TILE]);
-    }
-    __syncthreads();
-    if (d < rows) {
-      float sum = 0.f;
-      for (int t = 0; t < nk; ++t) sum += p_s[d * TILE + t];
-      l_s[d] = l_s[d] * a_s[d] + sum;
-    }
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      if (r < rows) {
-        float pv = 0.f;
-        const float* pr = p_s + r * TILE;
-        for (int t = 0; t < nk; ++t) pv = fmaf(round_op<T>(pr[t]), v_s[t * D + d], pv);
-        acc[r] = acc[r] * a_s[r] + pv;
-      }
-    }
+    // keys below kv_hi <= kv_len: the tile step's causal and window mask
+    // is the whole mask
+    f32_attend_tile(q_s, k_s, v_s, p_s, m_s, l_s, a_s, acc, rows, G, qpos_lo,
+                    t0, nk, window, sm_scale);
     __syncthreads();
   }
 #pragma unroll
@@ -166,8 +120,7 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
     if (r < rows) {
       const int t = t_begin + r / G, g = r % G;
       const float l = l_s[r];
-      out[(((size_t)n * Tq + t) * QH + h * G + g) * D + d] =
-          from_f<T>(acc[r] / (l == 0.f ? 1.f : l));
+      out[(((size_t)n * Tq + t) * QH + h * G + g) * D + d] = acc[r] / (l == 0.f ? 1.f : l);
     }
   }
 }
@@ -175,28 +128,8 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
 
 // ---- bfloat16: tensor cores (mma.sync m16n8k16) ---------------------------
 
-constexpr int MMA_KT = 64;          // keys per tile
+constexpr int MMA_KT = kMmaKeys;    // keys per tile
 constexpr int MMA_LD = D + 8;       // padded smem row (bf16 elements)
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_halves(const __nv_bfloat16* lo,
-                                                const __nv_bfloat16* hi) {
-  return (uint32_t)(*reinterpret_cast<const uint16_t*>(lo)) |
-         ((uint32_t)(*reinterpret_cast<const uint16_t*>(hi)) << 16);
-}
 
 __global__ void __launch_bounds__(THREADS) paged_prefill_mma_kernel(
     const __nv_bfloat16* __restrict__ q,       // [N, Tq, KH*G, D]
@@ -278,78 +211,9 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_mma_kernel(
       *reinterpret_cast<uint4*>(&v_s[kr][c]) = vv4;
     }
     __syncthreads();
-
-    // S = Q K^T: 8 column tiles of 8 keys
-    float s[MMA_KT / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < MMA_KT / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        const __nv_bfloat16* kr = &k_s[nt * 8 + gq][ks * 16 + 2 * tq];
-        mma_bf16(s[nt], qa[ks], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-    }
-    // scale, mask, online softmax (rows gq and gq+8 of this warp)
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < MMA_KT / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e / 2;
-        const int key = t0 + nt * 8 + 2 * tq + (e % 2);
-        const bool ok = live[i] && key < t0 + nk && key <= qpos[i] &&
-                        key < kv_len && (window <= 0 || key > qpos[i] - window);
-        s[nt][e] = ok ? s[nt][e] * sm_scale : -INFINITY;
-        mx[i] = fmaxf(mx[i], s[nt][e]);
-      }
-    }
-    float alpha[2], psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      // a row that has seen nothing yet keeps m = -inf and scale 1
-      alpha[i] = m_new == -INFINITY ? 1.f : expf(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < MMA_KT / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e / 2;
-        const float p = s[nt][e] == -INFINITY ? 0.f : expf(s[nt][e] - m[i]);
-        s[nt][e] = p;
-        psum[i] += p;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + psum[i];
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-    // O += P V: the score fragments of key tiles 2j, 2j+1 are the A
-    // fragment of key step j (weights rounded to bf16)
-#pragma unroll
-    for (int j = 0; j < MMA_KT / 16; ++j) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * j][0], s[2 * j][1]), pack_bf16(s[2 * j][2], s[2 * j][3]),
-          pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-          pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-      const int k0 = 16 * j + 2 * tq;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const int col = dn * 8 + gq;
-        mma_bf16(o[dn], pa, pack_halves(&v_s[k0][col], &v_s[k0 + 1][col]),
-                 pack_halves(&v_s[k0 + 8][col], &v_s[k0 + 9][col]));
-      }
-    }
+    // keys below kv_hi <= kv_len: the tile step's causal and window mask
+    // is the whole mask
+    mma_attend_tile(qa, live, qpos, k_s, v_s, t0, nk, window, sm_scale, o, m, l);
   }
 
 #pragma unroll
@@ -378,14 +242,14 @@ int launch_f32(const void* q, const void* k_pool, const void* v_pool,
   static bool configured = false;  // dynamic shared memory above 48 KB
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_prefill_kernel<float>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+        paged_prefill_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kF32SmemBytes);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const int QT = ROWS / G;
   dim3 grid(N, KH, (Tq + QT - 1) / QT);
-  paged_prefill_kernel<float><<<grid, THREADS, kSmemBytes, stream>>>(
+  paged_prefill_kernel<<<grid, THREADS, kF32SmemBytes, stream>>>(
       (const float*)q, (const float*)k_pool, (const float*)v_pool,
       (const int*)page_tables, (const int*)q_starts, (const int*)kv_lens,
       (float*)out, layer, num_pages, KH, G, TP, maxp, Tq, window, sm_scale);

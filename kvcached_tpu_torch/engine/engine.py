@@ -13,11 +13,17 @@ Port of the single-device subset of ``kvcached_tpu/engine/engine.py``:
   slots and lengths are computed on the host once per dispatch and copied
   to the card in one transfer, the sampled tokens feed the next step on the
   card, and the K x B tokens come back in one transfer at the end.
+- **Speculative decoding** (``spec_decode``): a dispatch runs S verify
+  iterations on the card, each drafting gamma tokens per row from a ring of
+  its last tokens (prompt lookup), verifying them in one multi-query
+  forward (K4) and accepting the longest agreeing prefix (rejection
+  sampling for sampled rows); the S x B x (gamma+1) tokens come back in one
+  transfer.
 - Engine blocks are pool pages (``block_tokens == page_tokens``); page
   tables hold physical page ids for the kernels.
 
-The mesh, pipeline-parallel, speculative-decoding, quantized-pool, stateful
-and multi-group paths of the JAX engine are not ported yet.
+The mesh, pipeline-parallel, quantized-pool, stateful and multi-group paths
+of the JAX engine are not ported yet.
 
 Sampling draws from ``torch.Generator`` s seeded from the engine step (and
 the request seed for first tokens), so an identical engine history
@@ -92,6 +98,14 @@ def _filtered_scaled(logits, temps, top_ks, top_ps, *, filters: bool):
     return scaled
 
 
+def _categorical(scaled, generator):
+    """One draw per row from the logits ``scaled`` on the last axis
+    (Gumbel-max)."""
+    u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
+    gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+    return torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
+
+
 def _sample_tokens(logits, temps, top_ks, top_ps, generator, *, filters: bool,
                    sampled: bool = True):
     """Per-row sampling: greedy where temp == 0, else a categorical draw
@@ -102,10 +116,64 @@ def _sample_tokens(logits, temps, top_ks, top_ps, generator, *, filters: bool,
     if not sampled:
         return greedy
     scaled = _filtered_scaled(logits, temps, top_ks, top_ps, filters=filters)
-    u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
-    gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
-    draw = torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
-    return torch.where(temps > 0, draw, greedy)
+    return torch.where(temps > 0, _categorical(scaled, generator), greedy)
+
+
+def _spec_accept(logits, drafts, temps, top_ks, top_ps, generator, *,
+                 filters: bool):
+    """Acceptance rule for speculative decoding with deterministic
+    (prompt-lookup) drafts.  ``logits`` [B, T, V]: position j < gamma = T-1
+    verifies draft j; position gamma gives the bonus token.
+
+    Greedy rows (temp == 0): accept iff the draft equals the model's own
+    argmax, so they are token-exact vs plain greedy decode.
+
+    Sampled rows: rejection sampling against the row's filtered target p.
+    The draft distribution is a point mass, so draft d is accepted with
+    probability p(d), and on rejection the replacement is drawn from p with
+    d's mass removed: each emitted token is distributed exactly as
+    sequential sampling from p.
+
+    Returns (out [B, T] int32, a [B] accepted drafts in 0..gamma): the
+    kept tokens of an iteration are out[:, :a+1]."""
+    B, T = logits.shape[:2]
+    gamma = T - 1
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, T]
+    scaled = _filtered_scaled(logits, temps[:, None], top_ks[:, None],
+                              top_ps[:, None], filters=filters)
+    p = torch.softmax(scaled, dim=-1)
+    # padded batch rows (a ring of -1) draft -1; their outputs are discarded
+    ids = drafts.long().clamp(min=0)
+    p_draft = torch.gather(p[:, :gamma], -1, ids[..., None])[..., 0]
+    u = torch.rand((B, gamma), generator=generator, device=logits.device)
+    is_sampled = temps > 0
+    accept = torch.where(is_sampled[:, None], u < p_draft, greedy[:, :gamma] == drafts)
+    a = torch.cumprod(accept.to(torch.int32), dim=1).sum(dim=1)
+    # replacement on rejection: the draft's mass removed, renormalized
+    rep = _categorical(scaled[:, :gamma].scatter(-1, ids[..., None], float("-inf")), generator)
+    bonus = _categorical(scaled[:, gamma], generator)
+    out_draft = torch.where(accept, drafts.to(torch.int32),
+                            torch.where(is_sampled[:, None], rep, greedy[:, :gamma]))
+    out_bonus = torch.where(is_sampled, bonus, greedy[:, gamma])
+    return torch.cat([out_draft, out_bonus[:, None]], dim=1), a
+
+
+def _ngram_draft(ring, n: int, gamma: int):
+    """Prompt-lookup drafts [B, gamma] from ``ring`` [B, W] (each row's last
+    W tokens, newest last, short rows left-padded with -1): the tokens that
+    followed the latest earlier occurrence of the trailing n-gram, clamped at
+    the ring's end; the last token repeated where the n-gram never
+    occurred."""
+    B, W = ring.shape
+    dev = ring.device
+    key = ring[:, W - n:]
+    idx = torch.arange(W - n, device=dev)[:, None] + torch.arange(n, device=dev)[None]
+    m = (ring[:, idx] == key[:, None, :]).all(dim=-1)  # [B, W-n] windows
+    found = m.any(dim=1)
+    latest = (W - n - 1) - torch.argmax(m.flip(1).to(torch.int32), dim=1)
+    cont_idx = (latest[:, None] + n + torch.arange(gamma, device=dev)[None]).clamp(max=W - 1)
+    cont = torch.gather(ring, 1, cont_idx)
+    return torch.where(found[:, None], cont, ring[:, -1:].expand_as(cont))
 
 
 @dataclass
@@ -182,6 +250,25 @@ class EngineConfig:
     #: Request.priority sooner; preemption evicts the worst-priority newest)
     #: or "sjf" (shortest remaining prompt first)
     scheduling_policy: str = "fcfs"
+    #: speculative decoding: prompt-lookup (n-gram) drafts verified in one
+    #: multi-query forward, up to spec_gamma+1 tokens per row per verify
+    #: iteration.  Greedy rows are token-exact vs plain decode (argmax
+    #: equality); temperature>0 rows are distribution-exact (rejection
+    #: sampling, _spec_accept).
+    spec_decode: bool = False
+    spec_gamma: int = 4  # draft tokens verified per iteration
+    spec_ngram: int = 2  # trailing n-gram matched for prompt lookup
+    spec_horizon: int = 4  # verify iterations per dispatch
+    spec_window: int = 128  # token ring the card drafts from
+    #: refuse spec_decode configurations that cannot guarantee token-
+    #: exactness vs plain decode: sub-float32 params or KV (the verify
+    #: forward reduces in another order than decode, so a near-tie argmax
+    #: can flip).  Off by default: bf16 spec decode logs a warning.
+    spec_exact: bool = False
+    #: acceptance-driven gamma: walk a power-of-two ladder <= spec_gamma on
+    #: an EMA of accepted drafts per iteration, and cool off to plain decode
+    #: when drafting is useless
+    spec_adaptive: bool = False
 
 
 class LLMEngine:
@@ -216,6 +303,20 @@ class LLMEngine:
         if ec.kv_dtype not in ("bfloat16", "float32"):
             raise NotImplementedError(
                 f"kv_dtype={ec.kv_dtype!r} is not ported yet (bfloat16, float32)")
+        if ec.spec_decode:
+            dt = str(self.adapter.cfg.dtype)
+            if ec.spec_exact and (dt != "float32" or ec.kv_dtype != "float32"):
+                raise ValueError(
+                    f"spec_exact=True requires float32 params AND "
+                    f"kv_dtype='float32' for token-exact speculative decoding "
+                    f"(model dtype {dt}, kv_dtype {ec.kv_dtype}); use float32 "
+                    f"or drop spec_exact")
+            if dt != "float32":
+                logger.warning(
+                    "spec_decode with %s params is distribution-faithful but "
+                    "not guaranteed token-exact vs plain decode (near-tie "
+                    "argmax may flip between the verify and decode reduction "
+                    "orders); use float32 for exactness-critical serving", dt)
         self.device = resolve_device(device)
         if params is None:
             params = self.adapter.init_params(seed=seed, device=self.device)
@@ -264,9 +365,19 @@ class LLMEngine:
         self._pb_prompts = 0
         #: host wall time of the prefill and decode dispatches (each ends in
         #: a device→host pull, so it covers the device work) and the tokens
-        #: they produced: prompt tokens prefilled, generated tokens kept
+        #: they produced: prompt tokens prefilled, generated tokens kept;
+        #: decode_steps counts the decode dispatches' forward passes (decode
+        #: steps, or verify iterations under spec decode)
         self.stats = dict(prefill_tokens=0, prefill_seconds=0.0,
-                          decode_tokens=0, decode_seconds=0.0)
+                          decode_tokens=0, decode_seconds=0.0, decode_steps=0)
+        self._spec_dispatches = 0
+        self._spec_tokens = 0
+        self._spec_iterations = 0  # (row, verify iteration) pairs that kept tokens
+        # adaptive gamma (spec_adaptive): EMA of accepted drafts per verify
+        # iteration, current ladder rung, plain-decode cooldown
+        self._spec_ema: float | None = None
+        self._spec_gamma_cur = ec.spec_gamma
+        self._spec_cooldown = 0
 
     def _stable_namespace(self) -> str:
         """Prefix-cache namespace: model config + kv config + a weights
@@ -663,6 +774,7 @@ class LLMEngine:
         toks = self._decode_horizon(
             K, tokens0, seq_lens0, page_tables, temps, top_ks, top_ps,
             max_lens, filters, bool((temps > 0).any()))
+        self.stats["decode_steps"] += K
         kept = 0
         for i, seq in enumerate(batch):
             for j in range(K):
@@ -678,6 +790,173 @@ class LLMEngine:
                 kept -= len(seq.tokens) - (seq.prompt_len + keep)
                 seq.tokens = seq.tokens[: seq.prompt_len + keep]
                 self._finish_seq(seq)
+        self._account("decode", kept, t0)
+
+    # ------------------------------------------------------------ spec decode
+
+    def _decode_dispatch(self) -> None:
+        """A spec horizon when spec decode is on and not cooling off, else
+        a decode horizon.  (The JAX engine's ``_spec_ok`` also asks for a
+        verify step and a stateless family: every ported family has both.)"""
+        if self.cfg.spec_decode and not self._spec_cooling():
+            self._do_spec_decode()
+        else:
+            self._do_decode()
+
+    def _spec_cooling(self) -> bool:
+        """During a cooldown the engine runs plain decode dispatches (the
+        workload does not draft well even at the smallest gamma); when it
+        expires, speculation retries with a fresh EMA."""
+        if not self.cfg.spec_adaptive or self._spec_cooldown <= 0:
+            return False
+        self._spec_cooldown -= 1
+        if self._spec_cooldown == 0:
+            self._spec_ema = None  # retry unbiased
+            self._spec_gamma_cur = min(2, self.cfg.spec_gamma)
+        return True
+
+    def _spec_update_gamma(self, drafts_per_iter: float) -> None:
+        """Follow the observed acceptance with an EMA and walk the
+        power-of-two gamma ladder: shrink when most drafts are rejected,
+        grow when the current rung is mostly accepted, and cool off to
+        plain decode when even gamma=2 yields almost nothing."""
+        ema = (drafts_per_iter if self._spec_ema is None
+               else 0.7 * self._spec_ema + 0.3 * drafts_per_iter)
+        self._spec_ema = ema
+        g = self._spec_gamma_cur
+        if ema < 0.15 and g <= 2:
+            self._spec_cooldown = 8
+        elif ema < 0.8 and g > 2:
+            self._spec_gamma_cur = g // 2
+        elif ema > 0.6 * g and g * 2 <= self.cfg.spec_gamma:
+            self._spec_gamma_cur = g * 2
+
+    def _spec_horizon(self, T, S, ring0, seq_lens0, page_tables, max_lens,
+                      temps, top_ks, top_ps, sampled, filters):
+        """S chained verify iterations on the card.  Where the JAX engine
+        jitted the S iterations into one program, the port runs a host loop
+        of torch ops that never waits on the card: each iteration drafts
+        gamma = T-1 tokens per row from the ring of its last W tokens
+        (:func:`_ngram_draft`), routes the fed tokens to their slots,
+        verifies them in one multi-query forward and accepts per
+        :func:`_spec_accept`.  seq_lens0 counts tokens whose KV is written.
+        Returns [S, B, T+1] on the host, in one transfer: each iteration's
+        emitted tokens and, last, how many of them count (accepted drafts
+        + 1)."""
+        P, n, gamma = self.cfg.page_tokens, self.cfg.spec_ngram, T - 1
+        B, W = ring0.shape
+        dev = self.device
+        ring = self._dev(ring0)
+        seq_lens = self._dev(np.maximum(seq_lens0, 0))
+        tables = self._dev(page_tables)
+        # position cap (the final token's slot) is never consumed, and plain
+        # decode leaves it unwritten: writes go to the zero page from the cap
+        # on, also for a row whose length is pinned at its cap
+        cap = (self._dev(max_lens) - 1).clamp(min=0)
+        steps = torch.arange(T, dtype=torch.int32, device=dev)[None]
+        rows = torch.arange(B, device=dev)[:, None]
+        cols = torch.arange(W, device=dev)[None]
+        temps_t = torch.as_tensor(temps).to(dev)
+        top_ks_t = torch.as_tensor(top_ks, dtype=torch.int64).to(dev)
+        top_ps_t = torch.as_tensor(top_ps).to(dev)
+        gen = _generator(dev, self._step_count) if sampled else None
+        out = []
+        for _ in range(S):
+            drafts = _ngram_draft(ring, n, gamma)
+            tokens = torch.cat([ring[:, -1:], drafts], dim=1)  # [B, T]
+            raw_pos = seq_lens[:, None] + steps
+            pos = torch.minimum(raw_pos, cap[:, None])
+            overflow = raw_pos >= cap[:, None]  # incl. padded rows (max_lens 0)
+            slot_pages = torch.where(overflow, torch.zeros_like(pos),
+                                     tables[rows, (pos // P).long()])
+            # unclamped: query j sits at kv_lens - T + j, so clamping at the
+            # cap would shift every query of the row; overflow queries'
+            # outputs are discarded and their writes go to the zero page
+            kv_lens = seq_lens + T
+            logits, _, _ = self.adapter.verify_step(
+                self.params, tokens, pos, self.k_pools, self.v_pools, tables,
+                slot_pages, pos % P, kv_lens)
+            if sampled:
+                toks, a = _spec_accept(logits, drafts, temps_t, top_ks_t,
+                                       top_ps_t, gen, filters=filters)
+            else:
+                # all greedy: the longest draft prefix equal to the model's
+                # own argmax; the argmax doubles as the correction
+                toks = torch.argmax(logits, dim=-1).to(torch.int32)
+                a = torch.cumprod((toks[:, :gamma] == drafts).to(torch.int32), dim=1).sum(dim=1)
+            appended = (a + 1).to(torch.int32)
+            # roll the kept tokens toks[:, :appended] into the ring
+            ring = torch.gather(torch.cat([ring, toks], dim=1), 1,
+                                cols + appended[:, None].long())
+            seq_lens = torch.minimum(seq_lens + appended, cap)
+            out.append(torch.cat([toks, appended[:, None]], dim=1))
+        return torch.stack(out).cpu().numpy()
+
+    def _do_spec_decode(self) -> None:
+        """One speculative horizon: S verify iterations, each drafting and
+        verifying gamma tokens per row and keeping the accepted prefix.
+        Greedy rows are token-exact vs plain decode by construction; sampled
+        rows are distribution-exact."""
+        ec = self.cfg
+        B = ec.max_batch
+        gamma = self._spec_gamma_cur if ec.spec_adaptive else ec.spec_gamma
+        T = gamma + 1
+        S = ec.spec_horizon
+        W = max(ec.spec_window, ec.spec_ngram + gamma + 1)
+        batch = self.running[:B]
+        # adaptive horizon: each iteration advances a row by >= 1 token, so
+        # near the batch's nearest cap S shrinks to a power of two
+        if ec.adaptive_horizon and batch:
+            needed = min(max(1, self._row_cap(s) - len(s.tokens)) for s in batch)
+            if needed < S:
+                S = min(1 << (needed.bit_length() - 1), ec.spec_horizon)
+        # a dispatch advances a row by at most S*T tokens (up to its cap)
+        batch = self._admit_running(
+            lambda s: min(len(s.tokens) + S * T, self._row_cap(s)))
+        if not batch:
+            return
+        ring = np.full((B, W), -1, np.int32)  # -1 pad: matches no n-gram
+        seq_lens0 = np.zeros(B, np.int32)
+        page_tables = np.zeros((B, self.max_pages_per_seq), np.int32)
+        max_lens = np.zeros(B, np.int32)  # 0 for padded rows: all discarded
+        temps = np.zeros(B, np.float32)
+        top_ks = np.zeros(B, np.int64)
+        top_ps = np.ones(B, np.float32)
+        for i, seq in enumerate(batch):
+            tail = seq.tokens[-W:]
+            ring[i, W - len(tail):] = tail
+            seq_lens0[i] = len(seq.tokens) - 1  # KV written so far
+            page_tables[i] = self._phys_row(seq)
+            max_lens[i] = self._row_cap(seq)
+            sp = seq.req.sampling
+            temps[i], top_ks[i], top_ps[i] = sp.temperature, sp.top_k, sp.top_p
+        sampled = bool((temps > 0).any())
+        filters = sampled and bool((top_ks > 0).any() or (top_ps < 1.0).any())
+        t0 = time.perf_counter()
+        packed = self._spec_horizon(T, S, ring, seq_lens0, page_tables, max_lens,
+                                    temps, top_ks, top_ps, sampled, filters)
+        outs, counts = packed[..., :-1], packed[..., -1]  # [S, B, T], [S, B]
+        self._spec_dispatches += 1
+        self.stats["decode_steps"] += S
+        if ec.spec_adaptive:
+            # counts are accepted drafts + 1; real rows only
+            self._spec_update_gamma(float(counts[:, : len(batch)].mean()) - 1.0)
+        kept = 0
+        for i, seq in enumerate(batch):
+            for it in range(S):
+                if seq.finished():
+                    break
+                self._spec_iterations += 1
+                for j in range(int(counts[it, i])):
+                    seq.tokens.append(int(outs[it, i, j]))
+                    kept += 1
+                    if seq.finished():
+                        break
+            self._check_stops(seq)
+            self._reclaim_slid_pages(seq)
+            if seq.finished():
+                self._finish_seq(seq)
+        self._spec_tokens += kept
         self._account("decode", kept, t0)
 
     def _account(self, kind: str, tokens: int, t0: float) -> None:
@@ -724,12 +1003,12 @@ class LLMEngine:
                 if self._prefill_chunk(self._prefilling):
                     self._prefilling = None
             else:
-                self._do_decode()
+                self._decode_dispatch()
             return
         if self.waiting and len(self.running) < self.cfg.max_batch:
             # burst admission alternates with decode when rows are running
             if self.running and self._step_count % 2 == 0:
-                self._do_decode()
+                self._decode_dispatch()
                 return
             batch, head_blocked = self._collect_prefill_batch()
             if len(batch) >= 2:
@@ -751,7 +1030,7 @@ class LLMEngine:
                 time.sleep(0.01)
                 return
         if self.running:
-            self._do_decode()
+            self._decode_dispatch()
 
     # ------------------------------------------------------------- frontends
 
@@ -793,6 +1072,23 @@ class LLMEngine:
                     self._pb_prompts / self._pb_dispatches
                     if self._pb_dispatches else 0.0),
             }
+        if self.cfg.spec_decode:
+            out["spec"] = {
+                "dispatches": self._spec_dispatches,
+                "tokens": self._spec_tokens,
+                "tokens_per_dispatch": (
+                    self._spec_tokens / self._spec_dispatches
+                    if self._spec_dispatches else 0.0),
+                # tokens a row keeps per verify iteration: 1 + accepted drafts
+                "iterations": self._spec_iterations,
+                "tokens_per_iteration": (
+                    self._spec_tokens / self._spec_iterations
+                    if self._spec_iterations else 0.0),
+            }
+            if self.cfg.spec_adaptive:
+                out["spec"]["gamma"] = self._spec_gamma_cur
+                out["spec"]["acceptance_ema"] = self._spec_ema
+                out["spec"]["cooldown"] = self._spec_cooldown
         return out
 
     def shutdown(self) -> None:

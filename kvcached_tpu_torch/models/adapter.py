@@ -32,6 +32,9 @@ class ModelAdapter(Protocol):
     def prefill_batch_step(self, params, tokens, positions, k_pools, v_pools,
                            chunk_pages, page_tables, q_starts, true_lens): ...
 
+    def verify_step(self, params, tokens, positions, k_pools, v_pools,
+                    page_tables, slot_pages, slot_offsets, seq_lens): ...
+
 
 @dataclass
 class LlamaAdapter:
@@ -67,6 +70,13 @@ class LlamaAdapter:
         from .llama import llama_prefill_batch_step
 
         return llama_prefill_batch_step(params, self.cfg, *args, **kw)
+
+    def verify_step(self, params, *args, **kw):
+        """Speculative-decode verification: T fed tokens per row in one
+        pass, logits at every position."""
+        from .llama import llama_verify_step
+
+        return llama_verify_step(params, self.cfg, *args, **kw)
 
 
 def as_adapter(model) -> ModelAdapter:

@@ -9,8 +9,8 @@ are updated in place by the kernels (the JAX package threaded them through
 the scan and donated them).
 
 The projections, MLP and LM head are ``torch.matmul``, as the JAX package
-left them to XLA; the attention goes through the three hand-written
-kernels of :mod:`kvcached_tpu_torch.ops`.
+left them to XLA; the attention goes through the hand-written kernels of
+:mod:`kvcached_tpu_torch.ops`.
 """
 
 from __future__ import annotations
@@ -27,6 +27,8 @@ from ..device.pool import resolve_device, torch_dtype
 from ..ops.paged_attention import (
     paged_attention_decode,
     paged_attention_decode_plain,
+    paged_attention_verify,
+    paged_attention_verify_plain,
     write_prefill_kv,
     write_prefill_kv_plain,
 )
@@ -313,6 +315,47 @@ def llama_decode_step(
             window=cfg.sliding_window,
         )
         x = x + attn.to(x.dtype).reshape(B, H * D) @ lp["wo"]
+        x = _mlp(x, lp, cfg.rms_eps)
+    x = rms_norm(x, params.final_norm, cfg.rms_eps)
+    return lm_head_logits(x, params.lm_head), k_pools, v_pools
+
+
+def llama_verify_step(
+    params: LlamaModel,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B, T] int: [last_token, draft_1 .. draft_{T-1}]
+    positions: torch.Tensor,  # [B, T] int
+    k_pools: torch.Tensor,
+    v_pools: torch.Tensor,
+    page_tables: torch.Tensor,  # [B, max_pages] int32 PHYSICAL page ids
+    slot_pages: torch.Tensor,  # [B, T] int32 write page per fed token (0 = discard)
+    slot_offsets: torch.Tensor,  # [B, T] int32
+    seq_lens: torch.Tensor,  # [B] int32 length INCLUDING all T fed tokens
+    *,
+    reference_attention: bool = False,
+):
+    """Speculative-decode verification: T tokens per sequence in one
+    forward pass (the weights stream once for T tokens), writing their K/V
+    and returning the logits at every position.  Returns (logits [B, T, V]
+    float32, k_pools, v_pools); the pools are written in place.
+    ``reference_attention`` as in :func:`llama_decode_step`."""
+    verify = paged_attention_verify_plain if reference_attention else paged_attention_verify
+    B, T = tokens.shape
+    H, KH, D = _heads(params, cfg)
+    pdt = k_pools.dtype
+    cos, sin = rope_cos_sin(positions, D, cfg.rope_theta, cfg.rope_scaling)
+    x = params.embed[tokens]  # [B, T, E]
+    for i in range(cfg.num_layers):
+        lp = params.layer(i)
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+        q, k, v = qkv_heads(h, lp, H, KH, D, cfg.rms_eps)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        attn, _, _ = verify(
+            q.to(pdt), k_pools, v_pools, page_tables, seq_lens, i,
+            k.to(pdt), v.to(pdt), slot_pages, slot_offsets,
+            window=cfg.sliding_window,
+        )  # [B, T, H, D]
+        x = x + attn.to(x.dtype).reshape(B, T, H * D) @ lp["wo"]
         x = _mlp(x, lp, cfg.rms_eps)
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
     return lm_head_logits(x, params.lm_head), k_pools, v_pools

@@ -10,6 +10,8 @@ from .paged_attention import (
     paged_attention_decode,
     paged_attention_decode_plain,
     paged_attention_reference,
+    paged_attention_verify,
+    paged_attention_verify_plain,
     write_prefill_kv,
     write_prefill_kv_plain,
 )
@@ -25,6 +27,7 @@ KERNELS = {
     "K1r": paged_attention,
     "K2": write_prefill_kv,
     "K3": paged_prefill_attention_batch,
+    "K4": paged_attention_verify,
 }
 
 
@@ -45,6 +48,8 @@ __all__ = [
     "paged_attention_decode",
     "paged_attention_decode_plain",
     "paged_attention_reference",
+    "paged_attention_verify",
+    "paged_attention_verify_plain",
     "paged_prefill_attention",
     "paged_prefill_attention_batch",
     "paged_prefill_attention_batch_plain",

@@ -21,7 +21,7 @@ import subprocess
 import threading
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
-SOURCES = ("paged_decode", "prefill_write", "paged_prefill")
+SOURCES = ("paged_decode", "prefill_write", "paged_prefill", "paged_verify")
 HEADERS = ("kv_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -37,6 +37,7 @@ _SIGNATURES = {
     "paged_decode": ("kvc_paged_decode", [_I] + [_P] * 11 + [_I] * 8 + [_F, _I, _P]),
     "prefill_write": ("kvc_prefill_write", [_P] * 5 + [_I] * 5 + [_P]),
     "paged_prefill": ("kvc_paged_prefill", [_I] + [_P] * 7 + [_I] * 9 + [_F, _P]),
+    "paged_verify": ("kvc_paged_verify", [_I] + [_P] * 11 + [_I] * 9 + [_F, _P]),
 }
 
 _lock = threading.Lock()

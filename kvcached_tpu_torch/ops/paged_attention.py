@@ -1,4 +1,5 @@
-"""Paged decode attention (K1, K1r) and the prefill page writer (K2).
+"""Paged decode attention (K1, K1r), the prefill page writer (K2) and the
+speculative-decode verify (K4).
 
 Port of the Pallas kernels of ``kvcached_tpu/ops/paged_attention.py``:
 
@@ -9,9 +10,14 @@ Port of the Pallas kernels of ``kvcached_tpu/ops/paged_attention.py``:
   (``_readonly_kernel``); it is the same CUDA kernel with the write off.
 - :func:`write_prefill_kv` (K2) replaces ``write_prefill_kv``
   (``_prefill_write_kernel``): copy a page-aligned chunk into its pages.
+- :func:`paged_attention_verify` (K4) replaces ``paged_attention_verify``
+  (``_verify_write_kernel`` over ``_verify_body``): write each row's T fed
+  tokens into their slots, then causal multi-query attention over the pages
+  (speculative-decode verification).
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/paged_decode.cu``,
-``csrc/prefill_write.cu``) on ``torch.cuda.current_stream()`` when given CUDA
+``csrc/prefill_write.cu``, ``csrc/paged_verify.cu``) on
+``torch.cuda.current_stream()`` when given CUDA
 tensors, and runs the plain PyTorch version beside it (``*_plain``) only
 when given CPU tensors.  There is no fallback: a CUDA call that the kernel
 does not take raises.  The pools are updated in place and returned, where
@@ -37,6 +43,10 @@ KERNEL_HEAD_DIM = 128
 MAX_GQA_GROUP = 16
 #: tokens per block of K1's split-K pass (csrc/paged_decode.cu SPLIT)
 DECODE_SPLIT = 256
+#: tokens per block of K4's split-K pass (csrc/paged_verify.cu SPLIT)
+VERIFY_SPLIT = 256
+#: query rows (fed tokens x GQA group) one K4 block holds (csrc/paged_verify.cu ROWS)
+MAX_VERIFY_ROWS = 64
 
 
 # ---------------------------------------------------------------------------
@@ -358,9 +368,131 @@ def write_prefill_kv(
     return k_pool, v_pool
 
 
+# ---------------------------------------------------------------------------
+# K4: speculative-decode verify (write T fed tokens, causal multi-query attend)
+# ---------------------------------------------------------------------------
+
+
+def paged_attention_verify_plain(
+    q, k_pool, v_pool, page_tables, seq_lens, layer,
+    k_new, v_new, slot_pages, slot_offsets, *, sm_scale=None, window=None,
+):
+    """Plain PyTorch version of K4: the same function as the CUDA kernel,
+    in dense tensor ops.  Keys past the page-table width do not exist
+    (the table is gathered whole), as the kernel clamps its range."""
+    B, T, QH, D = q.shape
+    KH = k_pool.shape[2]
+    G = QH // KH
+    dt = k_pool.dtype
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    layer = int(layer)
+    keep = slot_pages != 0  # zero page: discard
+    pages, offs = slot_pages[keep].long(), slot_offsets[keep].long()
+    k_pool[layer, pages, :, offs] = k_new[keep].to(dt)
+    v_pool[layer, pages, :, offs] = v_new[keep].to(dt)
+    k = _gather_pages(k_pool[layer], page_tables)
+    v = _gather_pages(v_pool[layer], page_tables)
+    # [B, T, KH, G, D] -> [B, KH, T*G, D], row = t * G + g
+    qg = q.reshape(B, T, KH, G, D).permute(0, 2, 1, 3, 4).reshape(B, KH, T * G, D)
+    s = torch.matmul(_op_round(qg, dt), k.transpose(-1, -2)) * sm_scale
+    pos = torch.arange(k.shape[2], device=q.device)[None, None]
+    # query row r = t*G + g sits at seq_len - T + t and sees keys below
+    # seq_len - T + t + 1
+    limit = seq_lens.long()[:, None] - T + torch.arange(T, device=q.device)[None] + 1
+    limit = limit.repeat_interleave(G, dim=1)[:, :, None]  # [B, R, 1]
+    valid = (pos < limit) & (pos < seq_lens.long()[:, None, None])
+    if window:
+        valid = valid & (pos >= (limit - window).clamp(min=0))
+    o = _masked_softmax_pv(s, valid[:, None], v, dt)  # [B, KH, R, D]
+    o = o.reshape(B, KH, T, G, D).permute(0, 2, 1, 3, 4).reshape(B, T, QH, D)
+    return o.to(dt).to(q.dtype), k_pool, v_pool
+
+
+def paged_attention_verify(
+    q: torch.Tensor,  # [B, T, num_q_heads, head_dim]
+    k_pool: torch.Tensor,  # [L, num_pages, num_kv_heads, page_tokens, head_dim]
+    v_pool: torch.Tensor,
+    page_tables: torch.Tensor,  # [B, max_pages] int32 physical ids
+    seq_lens: torch.Tensor,  # [B] int32 INCLUDING the T fed tokens
+    layer,
+    k_new: torch.Tensor,  # [B, T, num_kv_heads, head_dim] the fed tokens' K
+    v_new: torch.Tensor,
+    slot_pages: torch.Tensor,  # [B, T] int32 (0 = discard)
+    slot_offsets: torch.Tensor,  # [B, T] int32
+    *,
+    sm_scale: float | None = None,
+    window: int | None = None,
+    mla_v_dim: int | None = None,
+    k_scales=None,
+    v_scales=None,
+    logit_softcap: float | None = None,
+):
+    """K4: speculative-decode verification.  Writes each row's T fed
+    tokens' K/V into their slots, then query t of row b, at position
+    ``seq_lens[b] - T + t``, attends the row's keys up to and including its
+    own position (and within ``window``).  Returns ``(out [B, T, QH, D],
+    k_pool, v_pool)``; the pools are updated in place.
+
+    Replaces the Pallas ``_verify_write_kernel``.  Bound on the card by
+    device-memory bytes, as K1: each row's K/V is read once for all T
+    queries.  ``csrc/paged_verify.cu`` writes the tokens in one launch,
+    then splits each (row, kv head) into 256-token blocks that hold all
+    T*G query rows of the head (bf16 on the tensor cores), and merges the
+    blocks' partials."""
+    _unsupported(mla_v_dim, k_scales, v_scales, logit_softcap, k_pool.dtype)
+    if _on_cpu(q, k_pool, v_pool, page_tables, seq_lens, k_new, v_new,
+               slot_pages, slot_offsets):
+        return paged_attention_verify_plain(
+            q, k_pool, v_pool, page_tables, seq_lens, layer, k_new, v_new,
+            slot_pages, slot_offsets, sm_scale=sm_scale, window=window)
+    L, P, KH, TP, D = _require_pools(k_pool, v_pool)
+    B, T, QH, Dq = q.shape
+    if Dq != D or QH % KH:
+        raise ValueError(f"q {tuple(q.shape)} does not fit pools {tuple(k_pool.shape)}")
+    G = QH // KH
+    if T * G > MAX_VERIFY_ROWS:
+        raise ValueError(
+            f"{T} fed tokens x GQA group {G} = {T * G} query rows > {MAX_VERIFY_ROWS}")
+    layer = _layer_index(layer, L)
+    dt = k_pool.dtype
+    qc = q.to(dt).contiguous()
+    k_new = k_new.to(dt).contiguous()
+    v_new = v_new.to(dt).contiguous()
+    maxp = page_tables.shape[1]
+    _require(page_tables, "page_tables", torch.int32, (B, maxp))
+    _require(seq_lens, "seq_lens", torch.int32, (B,))
+    _require(k_new, "k_new", dt, (B, T, KH, D))
+    _require(v_new, "v_new", dt, (B, T, KH, D))
+    _require(slot_pages, "slot_pages", torch.int32, (B, T))
+    _require(slot_offsets, "slot_offsets", torch.int32, (B, T))
+    _require_aligned("K4", qc, k_new, v_new, k_pool, v_pool)
+    if window is not None and int(window) <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    out = torch.empty_like(qc)
+    # per-split partials (max, sum, acc) of each query row
+    splits = max(-(-maxp * TP // VERIFY_SPLIT), 1)
+    scratch = torch.empty(B * KH * splits * T * G * (D + 2), dtype=torch.float32,
+                          device=q.device)
+    lib = _build.load("paged_verify")
+    rc = lib.kvc_paged_verify(
+        KERNEL_DTYPES[dt], qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        page_tables.data_ptr(), seq_lens.data_ptr(), k_new.data_ptr(),
+        v_new.data_ptr(), slot_pages.data_ptr(), slot_offsets.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), B, T, layer, P, KH, G, TP, maxp,
+        int(window or 0), float(sm_scale), _stream(q),
+    )
+    _build.check(rc, "paged_verify")
+    paged_attention_verify.launches += 1
+    return out.to(q.dtype), k_pool, v_pool
+
+
 paged_attention_decode.launches = 0
 paged_attention.launches = 0
 write_prefill_kv.launches = 0
+paged_attention_verify.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card.  These tests carry the ``cuda`` marker and skip without a card (a
+"""The port's CUDA kernels (K1-K4) against their plain PyTorch versions, on
+the card.  These tests carry the ``cuda`` marker and skip without a card (a
 CUDA kernel has no CPU mode); on the H100 run
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 (``tests/conftest.py`` imports JAX, which the card's machine need not have).
@@ -108,3 +108,45 @@ def _prefill_case(card, dtype):
 def test_prefill_kernels_match_plain(card):
     for dtype in TOL:
         _prefill_case(card, dtype)
+
+
+def _verify_case(card, dtype, window):
+    """K4 at T = 5 fed tokens, GQA group 4 (20 query rows): a long row, a
+    discarded slot, a row overhanging its table by 2 < T, a padding row."""
+    rng = np.random.default_rng(2)
+    kp, vp = _pools(rng, dtype, card)
+    B, T, maxp = 4, 5, 6
+    pages = rng.permutation(np.arange(1, P))
+    seq_lens = np.array([90, 33, maxp * TP + 2, 0], np.int32)
+    pt = np.zeros((B, maxp), np.int32)
+    for b, s in enumerate(seq_lens):
+        n = min(-(-s // TP), maxp)
+        pt[b, :n] = pages[b * maxp : b * maxp + n]
+    pos = np.maximum(seq_lens[:, None] - T + np.arange(T)[None], 0)
+    inside = pos < maxp * TP
+    slot_pages = np.where(inside, np.take_along_axis(pt, np.minimum(pos // TP, maxp - 1), 1), 0)
+    slot_pages[1, 2] = 0
+    slot_pages[3] = 0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)  # noqa: E731
+    q = t(rng.standard_normal((B, T, QH, D)).astype(np.float32)).to(dtype)
+    kn = t(rng.standard_normal((B, T, KH, D)).astype(np.float32)).to(dtype)
+    vn = t(rng.standard_normal((B, T, KH, D)).astype(np.float32)).to(dtype)
+    args = (t(pt), t(seq_lens), 1, kn, vn, t(slot_pages.astype(np.int32)),
+            t((pos % TP).astype(np.int32)))
+    kp2, vp2 = kp.clone(), vp.clone()
+    out_k, _, _ = ops.paged_attention_verify(q, kp, vp, *args, window=window)
+    out_p, _, _ = ops.paged_attention_verify_plain(q, kp2, vp2, *args, window=window)
+    torch.cuda.synchronize()
+    case = f"{dtype}, window {window}"
+    assert torch.equal(kp, kp2) and torch.equal(vp, vp2), case
+    live = t((seq_lens[:, None] - T + np.arange(T)[None] >= 0) & inside)
+    err = (out_k.float() - out_p.float())[live].abs().max().item()
+    assert err <= TOL[dtype], case
+    assert not out_k[3].any(), case
+
+
+@pytest.mark.cuda
+def test_verify_kernel_matches_plain(card):
+    for dtype in TOL:
+        for window in (None, 24):
+            _verify_case(card, dtype, window)
