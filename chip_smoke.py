@@ -11,17 +11,20 @@ Phases (each prints its own lines; any failure exits nonzero):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: the four CUDA kernel sources are compiled from
+2. build: the five CUDA kernel sources are compiled from
    ``kvcached_tpu_torch/csrc`` (one nvcc per source, in parallel), with
    ptxas' register counts;
 3. kernels: K1, K1r, K2, K3 and K4 against their plain PyTorch versions on
    the card at Llama-3-8B shapes (B=8, KH=8, QH=32, D=128, 64-token pages,
    contexts 512-2048 on shuffled pages, a windowed case, a K3 batch with
    q_start > 0 and a kv_len = 0 row, K4 with T=5 fed tokens, a row
-   overhanging its table and a row whose writes are all discarded): pool
-   writes bit-exact, outputs within 2e-2 at bf16 and 1e-4 at float32 (TF32
-   off); each kernel's device time (calls back to back) and its time a call
-   from the host, the plain version's and SDPA's, beside the kernel's bound;
+   overhanging its table and a row whose writes are all discarded), and the
+   MLA kernels K5 (decode), K5v (verify, T=5), K6 and K3m at
+   DeepSeek-V2-Lite's widths (one latent kv head of 640 lanes, values the
+   first 512, 16 query heads, the same contexts and cases): pool writes
+   bit-exact, outputs within 2e-2 at bf16 and 1e-4 at float32 (TF32 off);
+   each kernel's device time (calls back to back) and its time a call from
+   the host, the plain version's and SDPA's, beside the kernel's bound;
 4. engine: ``LLMEngine`` serves Llama-3-8B at full width (32 layers, bf16,
    weights drawn on the card from a seed) for 8 requests: a prefix-cache
    hit, a prompt longer than the largest prefill bucket, batched prefill,
@@ -46,7 +49,15 @@ Phases (each prints its own lines; any failure exits nonzero):
    each half alone: decode tok/s, tokens per verify iteration, and the
    device busy share of one spec dispatch.  The launch counters are zeroed
    just before the mixed spec run and read just after; K4's must be > 0.
-   Phase 7 runs before phase 6, while the 8B weights are loaded.
+   Phase 7 runs before phase 6, while the 8B weights are loaded;
+8. MLA, after the 8B weights are freed (before phase 6): ``LLMEngine``
+   serves the MLA family at DeepSeek-V2-Lite's widths (bf16, 2.61 B
+   parameters drawn on the card from a seed) for phase 4's request mix,
+   without and with spec decode, the launch counters zeroed just before
+   and read just after each (K5, K6, K3m, and K5v with spec decode, each
+   > 0); the kernel path's last-position logits (prefill, decode, verify)
+   within 1e-2 of the plain path's at float32; float32 spec tokens
+   identical to plain decode; GREW/SHRANK/CORRECT under a live limit.
 
 The line before last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.  ``--rehearse`` runs the control flow
@@ -75,11 +86,15 @@ CARD = dict(
     B=8, KH=8, QH=32, D=128, TP=64, L=4, contexts=(512, 2048, 768, 1536, 1024, 1792, 640, 1280),
     window=1024, prefill_T=512, model="llama3_8b", max_new=64, shared_prefix=256,
     buckets=(256, 512), long_prompt=700, iters=20, spec_T=5, spec_new_exact=32,
+    # the MLA kernels at DeepSeek-V2-Lite's widths (MLAConfig.deepseek_v2_lite:
+    # 16 heads, a 512 + 64-lane latent padded to 640, sm_scale 1/sqrt(128 + 64))
+    mla_model="deepseek_v2_lite", MLA_H=16, MLA_D=640, MLA_R=512, MLA_SCALE=192 ** -0.5,
 )
 REHEARSE = dict(
     B=3, KH=2, QH=4, D=128, TP=16, L=2, contexts=(40, 70, 23), window=24,
     prefill_T=32, model="toy", max_new=48, shared_prefix=32, buckets=(32, 64),
     long_prompt=90, iters=2, spec_T=5, spec_new_exact=8,
+    mla_model="toy", MLA_H=4, MLA_D=256, MLA_R=128, MLA_SCALE=128 ** -0.5,
 )
 
 
@@ -449,12 +464,174 @@ def kernel_verify(torch, ops, F, case, dtype, window, timed):
     return res
 
 
+class MLACase(KernelCase):
+    """The MLA kernels' inputs at DeepSeek-V2-Lite's attention widths: one
+    latent kv head of MLA_D lanes (values its first MLA_R), MLA_H query
+    heads, the same contexts on shuffled pages as the Llama case."""
+
+    def pool(self, dtype):
+        S = self.S
+        k = self.randn((S["L"], self.P, 1, S["TP"], S["MLA_D"]), dtype)
+        k[:, 0] = 0
+        return k
+
+
+def mla_decode_verify(torch, ops, F, case, dtype, timed):
+    """K5's decode form (T=1) and its verify form (T=spec_T, the longest
+    row overhanging its table by 2, row 2's writes all discarded) vs plain."""
+    S = case.S
+    B, H, D, R, TP, L, T = S["B"], S["MLA_H"], S["MLA_D"], S["MLA_R"], S["TP"], S["L"], S["spec_T"]
+    dev, width = case.dev, case.maxp * TP
+    scale = S["MLA_SCALE"]
+    res = {}
+    for name, Tq in (("K5", 1), ("K5v", T)):
+        sl = case.seq_lens.clone()
+        if Tq > 1:
+            sl[int(torch.argmax(sl))] = width + 2
+        pos = sl.long()[:, None] - Tq + torch.arange(Tq, device=dev)[None]  # [B, Tq]
+        inside = pos < width
+        pages = case.page_tables.gather(1, pos.clamp(max=width - 1) // TP)
+        slot_pages = torch.where(inside, pages, torch.zeros_like(pages)).contiguous()
+        if Tq > 1:
+            slot_pages[2] = 0
+        slot_offsets = (pos % TP).to(torch.int32)
+        kp = case.pool(dtype)
+        q = case.randn((B, Tq, H, D), dtype)
+        ent = case.randn((B, Tq, 1, D), dtype)
+        kp2 = kp.clone()
+        lay = lambda: 1  # noqa: E731  (the checked calls use layer 1)
+        if Tq == 1:
+            q1, ent1 = q[:, 0], ent[:, 0]
+            sp1, so1 = slot_pages[:, 0].contiguous(), slot_offsets[:, 0].contiguous()
+            call = lambda pool, plain: (ops.paged_attention_decode_plain if plain  # noqa: E731
+                                        else ops.paged_attention_decode)(
+                q1, pool, None, case.page_tables, sl, lay(), ent1, None, sp1, so1,
+                sm_scale=scale, mla_v_dim=R)[0][:, None]
+        else:
+            call = lambda pool, plain: (ops.paged_attention_verify_plain if plain  # noqa: E731
+                                        else ops.paged_attention_verify)(
+                q, pool, None, case.page_tables, sl, lay(), ent, None, slot_pages,
+                slot_offsets, sm_scale=scale, mla_v_dim=R)[0]
+        out_k, out_p = call(kp, False), call(kp2, True)
+        torch.cuda.synchronize()
+        r = res[name] = dict(pools_bit_exact=bool(torch.equal(kp, kp2)),
+                             max_abs_err=_err(torch, out_k[inside], out_p[inside]))
+        if not timed:
+            continue
+        it = S["iters"]
+        cyc = iter(range(10 ** 9))
+        lay = lambda: next(cyc) % L  # noqa: E731
+        kern = lambda: call(kp, False)  # noqa: E731
+        r.update(ms=time_ms(torch, kern, it), host_ms=time_ms(torch, kern, it, hold=False),
+                 parts=kernel_parts(torch, kern, it),
+                 plain_ms=time_ms(torch, lambda: call(kp, True), it))
+        # work this data needs: visible (query token, key) pairs, each row's
+        # entries read once, q / the fed entries / tables read, the output
+        # and the fed entries written
+        kv = torch.arange(width, device=dev)[None, None]
+        vis = (kv <= pos[:, :, None]) & (kv < sl.long()[:, None, None])
+        pairs = int(vis.sum()) * H
+        keys = int(vis.any(dim=1).sum())
+        isz = kp.element_size()
+        written = int((slot_pages != 0).sum())
+        r["bound_ms"], r["bound_by"] = bound(
+            keys * D * isz + 2 * B * Tq * H * D * isz + (B * Tq + written) * D * isz
+            + B * case.maxp * 4 + 3 * B * Tq * 4, pairs * 2 * (D + R))
+        gathered = []
+        for layer in range(L):
+            k = kp[layer, :, 0][case.page_tables.long()].reshape(B, 1, width, D).contiguous()
+            gathered.append((k, k[..., :R].contiguous()))
+        q4 = q.permute(0, 2, 1, 3).contiguous()  # [B, H, Tq, D]
+        mask = vis[:, None]
+        r["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, *gathered[lay()], attn_mask=mask, scale=scale, enable_gqa=True), it)
+    return res
+
+
+def mla_prefill(torch, ops, F, case, dtype, timed):
+    """K6 (a page-aligned latent chunk, one page discarded) and K3m (a batch
+    with a cached prefix, a fresh chunk, a long-context row and a kv_len = 0
+    row) vs plain."""
+    S = case.S
+    H, D, R, TP, T, L = S["MLA_H"], S["MLA_D"], S["MLA_R"], S["TP"], S["prefill_T"], S["L"]
+    dev, scale = case.dev, S["MLA_SCALE"]
+    n = T // TP
+    kp = case.pool(dtype)
+    ent = case.randn((1, T, D), dtype)
+    pages = case.perm[-n:].clone()
+    pages[1] = 0  # a discarded chunk
+    kp2 = kp.clone()
+    ops.write_prefill_kv_single(kp, ent, pages, 1)
+    ops.write_prefill_kv_single_plain(kp2, ent, pages, 1)
+    torch.cuda.synchronize()
+    res = {"K6": dict(pools_bit_exact=bool(torch.equal(kp, kp2)), max_abs_err=_err(torch, kp, kp2))}
+    q_starts = torch.tensor([0, T, 2 * T, 0], dtype=torch.int32, device=dev)
+    kv_lens = torch.tensor([T - 37, T + T // 2, 3 * T, 0], dtype=torch.int32, device=dev)
+    N = 4
+    maxp = -(-3 * T // TP)
+    pt = torch.zeros((N, maxp), dtype=torch.int32, device=dev)
+    base = S["B"] * case.maxp
+    for r in range(N - 1):
+        need = -(-int(kv_lens[r]) // TP)
+        pt[r, :need] = case.perm[base + r * maxp: base + r * maxp + need]
+    q = case.randn((N, T, H, D), dtype)
+    attend = lambda plain, layer=1: (ops.paged_prefill_attention_batch_plain if plain  # noqa: E731
+                                     else ops.paged_prefill_attention_batch)(
+        q, kp, None, pt, q_starts, kv_lens, layer, sm_scale=scale, mla_v_dim=R)
+    out_k, out_p = attend(False), attend(True)
+    torch.cuda.synchronize()
+    live = [(r, slice(0, max(int(kv_lens[r] - q_starts[r]), 0))) for r in range(N)]
+    res["K3m"] = dict(
+        max_abs_err=max(_err(torch, out_k[r, s], out_p[r, s]) if s.stop else 0.0
+                        for r, s in live),
+        kv_len0_row_zero=not bool(out_k[N - 1].float().abs().max()))
+    if not timed:
+        return res
+    it = S["iters"]
+    cyc = iter(range(10 ** 9))
+    lay = lambda: next(cyc) % L  # noqa: E731
+    isz = kp.element_size()
+    w = res["K6"]
+    k6 = lambda: ops.write_prefill_kv_single(kp, ent, pages, lay())  # noqa: E731
+    w.update(ms=time_ms(torch, k6, it), host_ms=time_ms(torch, k6, it, hold=False),
+             plain_ms=time_ms(torch, lambda: ops.write_prefill_kv_single_plain(
+                 kp, ent, pages, lay()), it))
+    nlive = int((pages != 0).sum())
+    w["bound_ms"], w["bound_by"] = bound(2 * nlive * TP * D * isz + n * 4, 0)
+    keep = (pages != 0).nonzero().squeeze(1)
+    idx = pages[keep].long()
+    chunks = ent.reshape(1, n, TP, D).transpose(0, 1)[keep].contiguous()
+    w["library_ms"] = time_ms(torch, lambda: kp[lay()].index_copy_(0, idx, chunks), it)
+    a = res["K3m"]
+    k3m = lambda: attend(False, lay())  # noqa: E731
+    a.update(ms=time_ms(torch, k3m, it), host_ms=time_ms(torch, k3m, it, hold=False),
+             plain_ms=time_ms(torch, lambda: attend(True, lay()), it))
+    Sx = maxp * TP
+    qpos = q_starts.long()[:, None] + torch.arange(T, device=dev)[None]
+    kv = torch.arange(Sx, device=dev)[None, None]
+    vis = (kv <= qpos[:, :, None]) & (kv < kv_lens.long()[:, None, None])
+    pairs = int(vis.sum()) * H
+    keys = int(vis.any(dim=1).sum())
+    a["bound_ms"], a["bound_by"] = bound(2 * N * T * H * D * isz + keys * D * isz,
+                                         pairs * 2 * (D + R))
+    gathered = []
+    for layer in range(L):
+        k = kp[layer, :, 0][pt.long()].reshape(N, 1, Sx, D).contiguous()
+        gathered.append((k, k[..., :R].contiguous()))
+    q4 = q.transpose(1, 2).contiguous()
+    mask = vis[:, None]
+    a["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, *gathered[lay()], attn_mask=mask, scale=scale, enable_gqa=True), it)
+    return res
+
+
 def phase_kernels(torch, ops, S, dev):
     import torch.nn.functional as F
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     case = KernelCase(torch, dev, S)
+    mcase = MLACase(torch, dev, S)
     rows = {}
     for dtype, tol, timed in ((torch.bfloat16, BF16_TOL, True), (torch.float32, F32_TOL, False)):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -477,6 +654,26 @@ def phase_kernels(torch, ops, S, dev):
         require(w["pools_bit_exact"], f"K2 {tag} pool bytes differ")
         if timed:
             rows["K2"] = dict(w, tolerance=0.0)
+        # the MLA kernels at DeepSeek-V2-Lite's widths
+        mla = {**mla_decode_verify(torch, ops, F, mcase, dtype, timed),
+               **mla_prefill(torch, ops, F, mcase, dtype, timed)}
+        for name, r in mla.items():
+            tol_r = 0.0 if name == "K6" else tol
+            ok = r["max_abs_err"] <= tol_r and r.get("pools_bit_exact", True) \
+                and r.get("kv_len0_row_zero", True)
+            log(f"[kernels] {name} {tag} (MLA, D={S['MLA_D']}, values {S['MLA_R']}, "
+                f"{S['MLA_H']} heads): max_abs_err={r['max_abs_err']:.3e} (tol {tol_r}) "
+                + ("pools bit-exact " if r.get("pools_bit_exact") else "")
+                + ("ok" if ok else "FAILED"))
+            require(ok, f"{name} {tag} disagrees: {r}")
+            if timed:
+                rows[name] = dict(r, tolerance=tol_r)
+    from kvcached_tpu_torch.ops.paged_attention import mla_wave_blocks
+
+    log("[kernels] MLA blocks a wave (occupancy API), by dtype and query rows a block: "
+        + ", ".join(f"{dt} x {qr}: {mla_wave_blocks(dev, getattr(torch, dt), qr)}"
+                    for dt, qr in (("bfloat16", 16), ("bfloat16", 48), ("bfloat16", 32),
+                                   ("float32", 16))))
     for name, r in rows.items():
         log(f"[kernels] {name}: {r['ms']:.4f} ms on the device, {r['host_ms']:.4f} ms a "
             f"call from the host (plain {r['plain_ms']:.4f}, library "
@@ -500,18 +697,22 @@ def serve(eng, requests):
     return [by_id[i] for i in ids]
 
 
+def model_steps(cfg):
+    """(prefill, decode, verify) step functions of cfg's model family."""
+    from kvcached_tpu_torch.models import llama, mla
+
+    if isinstance(cfg, mla.MLAConfig):
+        return mla.mla_prefill_step, mla.mla_decode_step, mla.mla_verify_step
+    return llama.llama_prefill_step, llama.llama_decode_step, llama.llama_verify_step
+
+
 def last_logits(torch, cfg, params, S, dev, reference):
     """Last-position logits of a two-chunk prefill (the second chunk at
     q_start = one bucket), of one decode step after it, and of one verify
     step of spec_T fed tokens after that, through the kernels or
     (``reference``) through their plain versions, on fresh pools of the
-    model's dtype."""
-    from kvcached_tpu_torch.models.llama import (
-        llama_decode_step,
-        llama_prefill_step,
-        llama_verify_step,
-    )
-
+    model's dtype (one latent pool for the MLA family)."""
+    prefill_step, decode_step, verify_step = model_steps(cfg)
     TP, T, Tv = S["TP"], max(S["buckets"]), S["spec_T"]
     tail = T // 4 + 9
     T2 = next(b for b in S["buckets"] if b >= tail)
@@ -524,7 +725,7 @@ def last_logits(torch, cfg, params, S, dev, reference):
     table = torch.arange(1, n_pages + 1, dtype=torch.int32, device=dev)
     one = lambda x: torch.tensor([x], dtype=torch.int32, device=dev)  # noqa: E731
     kp = torch.zeros(shape, dtype=cfg.tdtype, device=dev)
-    vp = torch.zeros_like(kp)
+    vp = None if getattr(cfg, "num_kv_buffers", 2) == 1 else torch.zeros_like(kp)
     for q0, n, Tb in ((0, T, T), (T, tail, T2)):
         toks = torch.zeros(Tb, dtype=torch.int32, device=dev)
         toks[:n] = prompt[q0:q0 + n]
@@ -532,19 +733,29 @@ def last_logits(torch, cfg, params, S, dev, reference):
         chunk = torch.zeros(Tb // TP, dtype=torch.int32, device=dev)
         nreal = -(-n // TP)
         chunk[:nreal] = table[q0 // TP: q0 // TP + nreal]
-        lg_prefill, _, _ = llama_prefill_step(
+        lg_prefill, _, _ = prefill_step(
             params, cfg, toks, pos, kp, vp, chunk, table, q0, n,
             reference_attention=reference)
-    lg_decode, _, _ = llama_decode_step(
+    lg_decode, _, _ = decode_step(
         params, cfg, prompt[:1], one(plen), kp, vp, table[None],
         one(int(table[plen // TP])), one(plen % TP), one(plen + 1),
         reference_attention=reference)
     vpos = plen + 1 + torch.arange(Tv, dtype=torch.int32, device=dev)
-    lg_verify, _, _ = llama_verify_step(
+    lg_verify, _, _ = verify_step(
         params, cfg, prompt[None, 1:Tv + 1], vpos[None], kp, vp, table[None],
         table[vpos // TP][None].contiguous(), (vpos % TP)[None], one(plen + 1 + Tv),
         reference_attention=reference)
     return lg_prefill, lg_decode[0], lg_verify[0, -1]
+
+
+def float32_copy(cfg, params):
+    """The same model widened to float32 (config and parameters)."""
+    import dataclasses
+
+    c = dataclasses.replace(cfg, dtype="float32")
+    return c, type(params)(c, params.embed.float(),
+                           {k: v.float() for k, v in params.layers.items()},
+                           params.final_norm.float(), params.lm_head.float())
 
 
 def logits_check(torch, cfg, params, S, dev):
@@ -554,19 +765,12 @@ def logits_check(torch, cfg, params, S, dev):
     order; at bf16 the error is printed beside bf16's own distance from
     float32 (the plain path at both), since bf16 rounding differences
     compound over the layers of a random-weight model."""
-    import dataclasses
-
-    from kvcached_tpu_torch.models.llama import LlamaModel
-
     rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
     out = {}
     logits = {}
     for tag, c, p in (("bf16", cfg, params), ("f32", None, None)):
         if tag == "f32":
-            c = dataclasses.replace(cfg, dtype="float32")
-            p = LlamaModel(c, params.embed.float(),
-                           {k: v.float() for k, v in params.layers.items()},
-                           params.final_norm.float(), params.lm_head.float())
+            c, p = float32_copy(cfg, params)
         kern = last_logits(torch, c, p, S, dev, False)
         plain = last_logits(torch, c, p, S, dev, True)
         logits[tag] = plain
@@ -611,10 +815,44 @@ def profile_decode(torch, eng, rand, sp, spec=False):
         top=[(e.key[:60], round(_dev_time(e) / 1e3, 3)) for e in ev[:6]])
 
 
-def phase_engine(torch, ops, S, dev, rehearse):
+def request_mix(S, V, new):
+    """Phase 4's requests: one prompt, then 7: a prefix-cache hit, a prompt
+    longer than the largest bucket (chunked), four short prompts (batched
+    prefill) and a seeded sampled row.  Returns (rand, greedy, wave1,
+    wave2)."""
     import numpy as np
 
-    from kvcached_tpu_torch.engine import EngineConfig, LLMEngine, SamplingParams
+    from kvcached_tpu_torch.engine import SamplingParams
+
+    rng = np.random.default_rng(1)
+    rand = lambda n: [int(t) for t in rng.integers(0, V, n)]  # noqa: E731
+    prefix = rand(S["shared_prefix"])
+    greedy = SamplingParams(max_new_tokens=new)
+    sampled = SamplingParams(max_new_tokens=new, temperature=0.8, top_k=50, seed=1)
+    B0 = max(S["buckets"])
+    wave1 = [(prefix + rand(40), greedy)]
+    wave2 = [(prefix + rand(70), greedy), (rand(S["long_prompt"]), greedy)]
+    wave2 += [(rand(int(n)), greedy) for n in np.linspace(B0 // 5, B0 - 8, 4)]
+    wave2 += [(rand(B0 // 3), sampled)]
+    return rand, greedy, wave1, wave2
+
+
+def serve_mix(ops, eng, wave1, wave2):
+    """Serve the two waves with every launch counter zeroed just before and
+    read just after; the engine's throughput stats cover wave 2.  Returns
+    (counts, wave 1's outputs, wave 2's, wave 2's wall seconds)."""
+    ops.reset_launch_counts()  # --- the main path starts here
+    out1 = serve(eng, wave1)
+    eng.stats.update(prefill_tokens=0, prefill_seconds=0.0, decode_tokens=0,
+                     decode_seconds=0.0, decode_steps=0)
+    t0 = time.perf_counter()
+    out2 = serve(eng, wave2)
+    wall = time.perf_counter() - t0
+    return ops.launch_counts(), out1, out2, wall  # --- and ends here
+
+
+def phase_engine(torch, ops, S, dev, rehearse):
+    from kvcached_tpu_torch.engine import EngineConfig, LLMEngine
     from kvcached_tpu_torch.models.llama import LlamaConfig, init_llama_params
 
     cfg = LlamaConfig.llama3_8b() if S["model"] == "llama3_8b" else LlamaConfig.toy()
@@ -633,24 +871,8 @@ def phase_engine(torch, ops, S, dev, rehearse):
         decode_horizon=8, prefill_buckets=S["buckets"], num_pages=320 if not rehearse else 96,
         kv_dtype=cfg.dtype, prefill_batch=4)
     eng = LLMEngine(cfg, ec, params=params, device=dev)
-    rng = np.random.default_rng(1)
-    rand = lambda n: [int(t) for t in rng.integers(0, V, n)]  # noqa: E731
-    prefix = rand(S["shared_prefix"])
-    greedy = SamplingParams(max_new_tokens=new)
-    sampled = SamplingParams(max_new_tokens=new, temperature=0.8, top_k=50, seed=1)
-    B0 = max(S["buckets"])
-    wave1 = [(prefix + rand(40), greedy)]
-    wave2 = [(prefix + rand(70), greedy), (rand(S["long_prompt"]), greedy)]
-    wave2 += [(rand(int(n)), greedy) for n in np.linspace(B0 // 5, B0 - 8, 4)]
-    wave2 += [(rand(B0 // 3), sampled)]
-    ops.reset_launch_counts()  # --- the main path starts here
-    out1 = serve(eng, wave1)
-    eng.stats.update(prefill_tokens=0, prefill_seconds=0.0, decode_tokens=0,
-                     decode_seconds=0.0, decode_steps=0)
-    t0 = time.perf_counter()
-    out2 = serve(eng, wave2)
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()  # --- and ends here
+    rand, greedy, wave1, wave2 = request_mix(S, V, new)
+    counts, out1, out2, wall = serve_mix(ops, eng, wave1, wave2)
     m = eng.kv_metrics()
     prof = None if rehearse else profile_decode(torch, eng, rand, greedy)
     eng.shutdown()
@@ -708,7 +930,7 @@ def _set_limit(name, nbytes):
                    cwd=HERE, env=env, timeout=120)
 
 
-def phase_elastic(torch, cfg, params, S, dev, rehearse):
+def phase_elastic(torch, cfg, params, S, dev, rehearse, tag="elastic"):
     import numpy as np
 
     from kvcached_tpu_torch.engine import EngineConfig, LLMEngine, SamplingParams
@@ -772,17 +994,17 @@ def phase_elastic(torch, cfg, params, S, dev, rehearse):
         m_end = eng.kv_metrics()
     finally:
         eng.shutdown()
-    log(f"[elastic] under load: capacity {cap(m_load)} pages, mapped "
+    log(f"[{tag}] under load: capacity {cap(m_load)} pages, mapped "
         f"{m_load['mapped_bytes']} B; limit cut to {small} pages -> capacity "
         f"{cap(m_cut)}, mapped {m_cut['mapped_bytes']} B, preemptions "
         f"{m_cut['preemptions']}; limit raised -> capacity {cap(m_grow)}; "
         f"finished with {m_end['preemptions']} preemptions")
     md5 = lambda x: hashlib.md5(str(x).encode()).hexdigest()  # noqa: E731
-    log(f"[elastic] md5 constrained {md5(got)} unconstrained {md5(want)}")
+    log(f"[{tag}] md5 constrained {md5(got)} unconstrained {md5(want)}")
     require(small < cap(m_load) and cap(m_cut) < cap(m_load), "SHRANK")
     require(cap(m_grow) > cap(m_cut), "GREW")
     require(md5(got) == md5(want), "CORRECT")
-    log("[elastic] GREW/SHRANK/CORRECT ok")
+    log(f"[{tag}] GREW/SHRANK/CORRECT ok")
 
 
 # ---------------------------------------------------------------------------
@@ -794,12 +1016,9 @@ def phase_spec(torch, ops, cfg, params, S, dev, rehearse):
     """(a) token exactness at float32, (b) speed at bf16, with K4's launches
     counted over the mixed spec run.  Returns that run's launch counts and
     every run's decode tok/s."""
-    import dataclasses
-
     import numpy as np
 
     from kvcached_tpu_torch.engine import EngineConfig, LLMEngine, SamplingParams
-    from kvcached_tpu_torch.models.llama import LlamaModel
 
     rng = np.random.default_rng(4)
     V, TP, B0 = cfg.vocab_size, S["TP"], max(S["buckets"])
@@ -816,9 +1035,7 @@ def phase_spec(torch, ops, cfg, params, S, dev, rehearse):
 
     # (a) float32: the verify forward and the decode forward give the same
     # greedy tokens
-    c32 = dataclasses.replace(cfg, dtype="float32")
-    p32 = LlamaModel(c32, params.embed.float(), {k: v.float() for k, v in params.layers.items()},
-                     params.final_norm.float(), params.lm_head.float())
+    c32, p32 = float32_copy(cfg, params)
     prompts = [rep(B0 // 4, 12), rand(B0 // 3), rep(B0 // 8, 7), rand(B0 // 5)]
     sp = SamplingParams(max_new_tokens=S["spec_new_exact"])
     outs = {}
@@ -897,6 +1114,113 @@ def phase_spec(torch, ops, cfg, params, S, dev, rehearse):
         require(counts["K4"] > 0, "K4 was never launched on the spec path")
     return counts, {f"{name} {'spec' if spec else 'plain'}": r["decode"]
                     for (name, spec), r in res.items()}
+
+
+# ---------------------------------------------------------------------------
+# 8. the MLA family at DeepSeek-V2-Lite's widths
+# ---------------------------------------------------------------------------
+
+
+def phase_mla(torch, ops, S, dev, rehearse):
+    """The MLA family served by ``LLMEngine`` at DeepSeek-V2-Lite's widths
+    (bf16, weights drawn on the card from a seed): (a) phase 4's request mix
+    with the launch counters zeroed just before and read just after, K5, K6
+    and K3m each > 0; (b) the same mix with spec decode, K4's MLA form K5v
+    > 0; (c) last-position logits kernel path vs plain path at float32; (d)
+    float32 spec tokens (spec_exact) identical to plain decode's; (e)
+    GREW/SHRANK/CORRECT under a live limit.  Returns the launch counts and
+    the bf16 tok/s."""
+    from kvcached_tpu_torch.engine import EngineConfig, LLMEngine, SamplingParams
+    from kvcached_tpu_torch.models import mla
+
+    t_phase = time.perf_counter()
+    cfg = getattr(mla.MLAConfig, S["mla_model"])()
+    t0 = time.perf_counter()
+    params = mla.init_mla_params(cfg, seed=0, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"[mla] {S['mla_model']}: L={cfg.num_layers} E={cfg.hidden_size} H={cfg.num_heads} "
+        f"latent {cfg.kv_lora_rank}+{cfg.qk_rope_head_dim} (pool lanes "
+        f"{cfg.cache_head_dim}) F={cfg.intermediate_size} V={cfg.vocab_size} {cfg.dtype}: "
+        f"{n_params / 1e9:.2f} B params drawn on {dev} in {time.perf_counter() - t0:.1f} s")
+    TP, V, new = S["TP"], cfg.vocab_size, S["max_new"]
+
+    def make(c, p, spec=False, num_pages=320 if not rehearse else 96):
+        return LLMEngine(c, EngineConfig(
+            max_batch=8, max_model_len=2048 if not rehearse else 256, page_tokens=TP,
+            decode_horizon=8, prefill_buckets=S["buckets"], num_pages=num_pages,
+            kv_dtype=c.dtype, prefill_batch=4, spec_decode=spec,
+            spec_exact=spec and c.dtype == "float32"), params=p, device=dev)
+
+    tok_s, counts = {}, {}
+    for spec in (False, True):
+        eng = make(cfg, params, spec)
+        require(eng.v_pools is None, "the MLA pool is one buffer")
+        rand, greedy, wave1, wave2 = request_mix(S, V, new)
+        got, out1, out2, wall = serve_mix(ops, eng, wave1, wave2)
+        m = eng.kv_metrics()
+        prof = None if rehearse else profile_decode(torch, eng, rand, greedy, spec=spec)
+        eng.shutdown()
+        del eng
+        th = m["throughput"]
+        outs = out1 + out2
+        tag = "spec" if spec else "plain"
+        tok_s[f"{tag} prefill"] = th["prefill_tokens"] / max(th["prefill_seconds"], 1e-9)
+        tok_s[f"{tag} decode"] = th["decode_tokens"] / max(th["decode_seconds"], 1e-9)
+        log(f"[mla] ({'b' if spec else 'a'}) {cfg.dtype}, spec_decode={spec}: "
+            f"{len(outs)} requests, {sum(map(len, outs))} tokens; wave 2 in {wall:.2f} s: "
+            f"prefill {tok_s[tag + ' prefill']:.1f} tok/s, decode "
+            f"{tok_s[tag + ' decode']:.1f} tok/s; prefix cache {m['prefix_cache']}, "
+            f"prefill batch {m['prefill_batch']}, spec {json.dumps(m.get('spec'))}; "
+            f"kernel launches {json.dumps(got)}")
+        if prof:
+            log(f"[mla] one {'spec' if spec else 'decode'} dispatch ({prof['rows']} rows x "
+                f"{prof['steps']} {'verify iterations' if spec else 'steps'}) under "
+                f"torch.profiler: wall {prof['wall_ms']:.2f} ms, device busy "
+                f"{prof['device_ms']:.2f} ms ({100 * prof['device_ms'] / prof['wall_ms']:.1f}%), "
+                f"top kernels {json.dumps(prof['top'])}")
+        require(all(len(o) == new for o in outs), "every MLA request yields max_new tokens")
+        require(all(0 <= t < V for o in outs for t in o), "MLA tokens inside the vocabulary")
+        require(m["prefix_cache"]["hits"] > 0, "the MLA prefix was a cache hit")
+        require(m["prefill_batch"]["dispatches"] > 0, "MLA batched prefill ran")
+        for k in (("K5v",) if spec else ("K5", "K6", "K3m")):
+            counts[k] = got[k]
+            if not rehearse:
+                require(got[k] > 0, f"{k} was never launched on the MLA path")
+    rels = logits_check(torch, cfg, params, S, dev)
+    log(f"[mla] (c) last-position logits, kernel path vs plain path on {dev}, "
+        f"norm-relative error: float32 prefill {rels['f32_prefill']:.3e} decode "
+        f"{rels['f32_decode']:.3e} verify {rels['f32_verify']:.3e} (tol {LOGITS_REL_TOL}); "
+        f"bf16 prefill {rels['bf16_prefill']:.3e} decode {rels['bf16_decode']:.3e} verify "
+        f"{rels['bf16_verify']:.3e} (bf16 plain path vs float32 plain path: prefill "
+        f"{rels['bf16_vs_f32_prefill']:.3e} decode {rels['bf16_vs_f32_decode']:.3e} "
+        f"verify {rels['bf16_vs_f32_verify']:.3e})")
+    require(max(rels["f32_prefill"], rels["f32_decode"], rels["f32_verify"])
+            <= LOGITS_REL_TOL, f"MLA logits disagree: {rels}")
+
+    c32, p32 = float32_copy(cfg, params)
+    rand = request_mix(S, V, new)[0]
+    B0 = max(S["buckets"])
+    prompts = [(rand(12) * B0)[:B0 // 4], rand(B0 // 3), (rand(7) * B0)[:B0 // 8], rand(B0 // 5)]
+    sp = SamplingParams(max_new_tokens=S["spec_new_exact"])
+    outs, ms = {}, None
+    for spec in (False, True):
+        eng = make(c32, p32, spec, 64)
+        outs[spec] = serve(eng, [(p, sp) for p in prompts])
+        ms = eng.kv_metrics().get("spec")
+        eng.shutdown()
+        del eng
+    del p32
+    same = outs[True] == outs[False]
+    log(f"[mla] (d) float32, {len(prompts)} requests x {S['spec_new_exact']} tokens: spec "
+        f"decode (spec_exact) vs plain decode greedy tokens identical: {same}; spec "
+        f"{json.dumps(ms)}")
+    require(same, "float32 MLA spec decode changed greedy tokens")
+    require(ms["dispatches"] > 0, "the float32 MLA spec run dispatched no verify")
+    phase_elastic(torch, cfg, params, S, dev, rehearse, tag="mla elastic")
+    log(f"[mla] phase 8 in {time.perf_counter() - t_phase:.1f} s")
+    return counts, tok_s
 
 
 # ---------------------------------------------------------------------------
@@ -1003,24 +1327,37 @@ def main(argv) -> int:
     spec_counts, spec_tok_s = phase_spec(torch, ops, cfg, params, S, dev, rehearse)
     counts["K4"] = spec_counts["K4"]
     del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    mla_counts, mla_tok_s = phase_mla(torch, ops, S, dev, rehearse)
+    counts.update(mla_counts)
     real = phase_real_weights(torch, dev, rehearse)
-    log(f"[done] phases 3-7 in {time.perf_counter() - t0:.1f} s; engine tok/s "
-        f"{json.dumps(tok_s)}; spec decode tok/s {json.dumps(spec_tok_s)}; winadd "
-        f"exact {real['winadd']}; card {smi}")
+    log(f"[done] phases 3-8 in {time.perf_counter() - t0:.1f} s; engine tok/s "
+        f"{json.dumps(tok_s)}; spec decode tok/s {json.dumps(spec_tok_s)}; MLA tok/s "
+        f"{json.dumps(mla_tok_s)}; winadd exact {real['winadd']}; card {smi}")
     if rehearse:
         log("[done] rehearsal only: no result")
         return 3
+    # replaces: each TPU kernel's pl.pallas_call line
     meta = {
         "K1": ("paged_attention_decode", "paged_decode.cu",
-               "kvcached_tpu/ops/paged_attention.py:60"),
+               "kvcached_tpu/ops/paged_attention.py:609"),
         "K1r": ("paged_attention (K1 kernel, write off)", "paged_decode.cu",
-                "kvcached_tpu/ops/paged_attention.py:98"),
+                "kvcached_tpu/ops/paged_attention.py:636"),
         "K2": ("write_prefill_kv", "prefill_write.cu",
-               "kvcached_tpu/ops/paged_attention.py:1157"),
+               "kvcached_tpu/ops/paged_attention.py:1220"),
         "K3": ("paged_prefill_attention_batch", "paged_prefill.cu",
-               "kvcached_tpu/ops/paged_prefill.py:35"),
+               "kvcached_tpu/ops/paged_prefill.py:344"),
         "K4": ("paged_attention_verify", "paged_verify.cu",
-               "kvcached_tpu/ops/paged_attention.py:661"),
+               "kvcached_tpu/ops/paged_attention.py:1116"),
+        "K5": ("paged_attention_decode (MLA mode)", "mla_attend.cu",
+               "kvcached_tpu/ops/paged_attention.py:585"),
+        "K5v": ("paged_attention_verify (MLA mode)", "mla_attend.cu",
+                "kvcached_tpu/ops/paged_attention.py:1094"),
+        "K6": ("write_prefill_kv_single", "prefill_write.cu",
+               "kvcached_tpu/ops/paged_attention.py:1299"),
+        "K3m": ("paged_prefill_attention_batch (MLA mode)", "mla_attend.cu",
+                "kvcached_tpu/ops/paged_prefill.py:344"),
     }
     kernels = []
     for k, (fn, src, replaces) in meta.items():

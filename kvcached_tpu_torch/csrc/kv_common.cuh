@@ -68,6 +68,23 @@ __device__ __forceinline__ uint32_t pack_halves(const __nv_bfloat16* lo,
          ((uint32_t)(*reinterpret_cast<const uint16_t*>(hi)) << 16);
 }
 
+// 16 bytes from device memory into shared memory without passing through
+// registers (cp.async, Ampere and later); completes at cp_async_wait.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's committed copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---- the tile step of the flash-attention kernels (K3, K4) ---------------
 
 constexpr int kHeadDim = 128;  // head_dim of every kernel

@@ -97,23 +97,6 @@ __global__ void __launch_bounds__(THREADS) verify_write_kernel(
   }
 }
 
-// 16 bytes from device memory into shared memory without passing through
-// registers (cp.async, Ampere and later); completes at cp_async_wait.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N of this thread's committed copy groups are pending
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Start copying one 64-key tile of K and V into (k_s, v_s), all of this
 // thread's 2 * LOADS 16-byte copies in flight at once, as one copy group;
 // rows past nk are zeroed (their weights are 0, and 0 * NaN would not be).

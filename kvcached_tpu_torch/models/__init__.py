@@ -1,4 +1,4 @@
-"""Model families served by the port (the Llama family so far)."""
+"""Model families served by the port (the Llama and MLA families so far)."""
 
 from .llama import (
     LlamaConfig,
@@ -8,6 +8,15 @@ from .llama import (
     llama_prefill_batch_step,
     llama_prefill_step,
 )
+from .mla import (
+    MLAConfig,
+    MLAModel,
+    init_mla_params,
+    mla_decode_step,
+    mla_prefill_batch_step,
+    mla_prefill_step,
+    mla_verify_step,
+)
 
 __all__ = [
     "LlamaConfig",
@@ -16,4 +25,11 @@ __all__ = [
     "llama_decode_step",
     "llama_prefill_batch_step",
     "llama_prefill_step",
+    "MLAConfig",
+    "MLAModel",
+    "init_mla_params",
+    "mla_decode_step",
+    "mla_prefill_batch_step",
+    "mla_prefill_step",
+    "mla_verify_step",
 ]

@@ -8,26 +8,37 @@ PyTorch versions.
 from .paged_attention import (
     paged_attention,
     paged_attention_decode,
+    paged_attention_decode_mla,
     paged_attention_decode_plain,
     paged_attention_reference,
     paged_attention_verify,
+    paged_attention_verify_mla,
     paged_attention_verify_plain,
     write_prefill_kv,
     write_prefill_kv_plain,
+    write_prefill_kv_single,
+    write_prefill_kv_single_plain,
 )
 from .paged_prefill import (
     paged_prefill_attention,
     paged_prefill_attention_batch,
+    paged_prefill_attention_batch_mla,
     paged_prefill_attention_batch_plain,
 )
 
-#: kernel id → wrapper (K1r is K1's CUDA kernel with the write off)
+#: kernel id → wrapper (K1r is K1's CUDA kernel with the write off; K5,
+#: K5v and K3m are the MLA modes of decode, verify and prefill, all three
+#: launching csrc/mla_attend.cu)
 KERNELS = {
     "K1": paged_attention_decode,
     "K1r": paged_attention,
     "K2": write_prefill_kv,
     "K3": paged_prefill_attention_batch,
     "K4": paged_attention_verify,
+    "K5": paged_attention_decode_mla,
+    "K5v": paged_attention_verify_mla,
+    "K6": write_prefill_kv_single,
+    "K3m": paged_prefill_attention_batch_mla,
 }
 
 
@@ -46,13 +57,18 @@ __all__ = [
     "reset_launch_counts",
     "paged_attention",
     "paged_attention_decode",
+    "paged_attention_decode_mla",
     "paged_attention_decode_plain",
     "paged_attention_reference",
     "paged_attention_verify",
+    "paged_attention_verify_mla",
     "paged_attention_verify_plain",
     "paged_prefill_attention",
     "paged_prefill_attention_batch",
+    "paged_prefill_attention_batch_mla",
     "paged_prefill_attention_batch_plain",
     "write_prefill_kv",
     "write_prefill_kv_plain",
+    "write_prefill_kv_single",
+    "write_prefill_kv_single_plain",
 ]

@@ -21,7 +21,7 @@ import subprocess
 import threading
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
-SOURCES = ("paged_decode", "prefill_write", "paged_prefill", "paged_verify")
+SOURCES = ("paged_decode", "prefill_write", "paged_prefill", "paged_verify", "mla_attend")
 HEADERS = ("kv_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -31,13 +31,16 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: C entry point and argument types of each library (pointers and the
+#: C entry points and their argument types, by library (pointers and the
 #: stream as c_void_p, so 64-bit addresses are passed whole)
 _SIGNATURES = {
-    "paged_decode": ("kvc_paged_decode", [_I] + [_P] * 11 + [_I] * 8 + [_F, _I, _P]),
-    "prefill_write": ("kvc_prefill_write", [_P] * 5 + [_I] * 5 + [_P]),
-    "paged_prefill": ("kvc_paged_prefill", [_I] + [_P] * 7 + [_I] * 9 + [_F, _P]),
-    "paged_verify": ("kvc_paged_verify", [_I] + [_P] * 11 + [_I] * 9 + [_F, _P]),
+    "paged_decode": {"kvc_paged_decode": [_I] + [_P] * 11 + [_I] * 8 + [_F, _I, _P]},
+    "prefill_write": {"kvc_prefill_write": [_P] * 5 + [_I] * 5 + [_P],
+                      "kvc_prefill_write_single": [_P] * 3 + [_I] * 5 + [_P]},
+    "paged_prefill": {"kvc_paged_prefill": [_I] + [_P] * 7 + [_I] * 9 + [_F, _P]},
+    "paged_verify": {"kvc_paged_verify": [_I] + [_P] * 11 + [_I] * 9 + [_F, _P]},
+    "mla_attend": {"kvc_mla_attend": [_I] + [_P] * 10 + [_I] * 9 + [_F, _P],
+                   "kvc_mla_wave_blocks": [_I, _I, ctypes.POINTER(_I)]},
 }
 
 _lock = threading.Lock()
@@ -111,10 +114,10 @@ def load(name: str) -> ctypes.CDLL:
             lib = _libs.get(name)
             if lib is None:
                 lib = ctypes.CDLL(path)
-                fn_name, argtypes = _SIGNATURES[name]
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                for fn_name, argtypes in _SIGNATURES[name].items():
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
                 _libs[name] = lib
     return lib
 

@@ -14,9 +14,17 @@ Port of the Pallas kernels of ``kvcached_tpu/ops/paged_attention.py``:
   (``_verify_write_kernel`` over ``_verify_body``): write each row's T fed
   tokens into their slots, then causal multi-query attention over the pages
   (speculative-decode verification).
+- The MLA mode (``mla_v_dim``) of :func:`paged_attention_decode` and
+  :func:`paged_attention_verify` (K5) replaces ``_decode_write_kernel_mla``
+  and ``_verify_write_kernel_mla``: one latent pool serves as K (all of its
+  lanes) and V (its first ``mla_v_dim`` lanes).  Both launch
+  ``csrc/mla_attend.cu`` through :func:`paged_attention_decode_mla` and
+  :func:`paged_attention_verify_mla`.
+- :func:`write_prefill_kv_single` (K6) replaces ``write_prefill_kv_single``
+  (``_prefill_write_single_kernel``): K2 for the single latent pool.
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/paged_decode.cu``,
-``csrc/prefill_write.cu``, ``csrc/paged_verify.cu``) on
+``csrc/prefill_write.cu``, ``csrc/paged_verify.cu``, ``csrc/mla_attend.cu``) on
 ``torch.cuda.current_stream()`` when given CUDA
 tensors, and runs the plain PyTorch version beside it (``*_plain``) only
 when given CPU tensors.  There is no fallback: a CUDA call that the kernel
@@ -24,13 +32,17 @@ does not take raises.  The pools are updated in place and returned, where
 the JAX package donated them and got new arrays back.  Each wrapper counts
 its kernel launches in ``<wrapper>.launches``.
 
-The kernels take float32 and bfloat16 pools with head_dim 128.  int8 and fp8
-pools, logit soft-capping and the MLA single-buffer mode raise
-``NotImplementedError``: they are not ported yet.
+The kernels take float32 and bfloat16 pools with head_dim 128, and in the
+MLA mode one latent pool of DeepSeek-V2's width (640 lanes, values 512).
+int8 and fp8 pools, logit soft-capping, the MLA mode of the read-only
+:func:`paged_attention` and the MLA mode with several kv heads or a window
+raise ``NotImplementedError``: they are not ported yet.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -47,6 +59,16 @@ DECODE_SPLIT = 256
 VERIFY_SPLIT = 256
 #: query rows (fed tokens x GQA group) one K4 block holds (csrc/paged_verify.cu ROWS)
 MAX_VERIFY_ROWS = 64
+#: the MLA kernels' latent and value widths (csrc/mla_attend.cu D, R):
+#: DeepSeek-V2's kv_lora_rank 512 + rope 64 lanes, padded to 640
+MLA_HEAD_DIM = 640
+MLA_V_DIM = 512
+#: query rows one MLA block holds (csrc/mla_attend.cu MAX_ROWS, F32_ROWS)
+MLA_ROWS = {torch.bfloat16: 64, torch.float32: 16}
+#: keys per MLA tile (csrc/mla_attend.cu KT) and the fewest keys per block
+#: of the MLA split-K pass
+MLA_KEY_TILE = 32
+MLA_MIN_SPLIT = 128
 
 
 # ---------------------------------------------------------------------------
@@ -149,13 +171,37 @@ def _gather_pages(pool_layer, page_tables):
 # ---------------------------------------------------------------------------
 
 
+def _write_slots(pool, layer, new, slot_pages, slot_offsets):
+    """Store each token of ``new`` [..., KH, D] at its (page, offset) slot
+    of ``layer``; slots on the zero page are discarded."""
+    keep = slot_pages != 0
+    pages, offs = slot_pages[keep].long(), slot_offsets[keep].long()
+    pool[layer, pages, :, offs] = new[keep].to(pool.dtype)
+
+
+def _kv_values(k_pool, v_pool, layer, page_tables, mla_v_dim):
+    """Gathered float32 keys and values of ``layer``: in the MLA mode the
+    values are the first ``mla_v_dim`` lanes of the one latent pool."""
+    k = _gather_pages(k_pool[layer], page_tables)
+    if mla_v_dim is not None:
+        return k, k[..., :mla_v_dim]
+    return k, _gather_pages(v_pool[layer], page_tables)
+
+
+def _pad_lanes(o, D):
+    """MLA mode: output lanes past the values are zero, as in the TPU
+    kernels' accumulator."""
+    return torch.nn.functional.pad(o, (0, D - o.shape[-1])) if o.shape[-1] < D else o
+
+
 def paged_attention_decode_plain(
     q, k_pool, v_pool, page_tables, seq_lens, layer,
     k_new, v_new, slot_pages, slot_offsets,
-    *, sm_scale=None, window=None, write_kv=True,
+    *, sm_scale=None, window=None, write_kv=True, mla_v_dim=None,
 ):
-    """Plain PyTorch version of K1 (``write_kv=True``) and K1r: the same
-    function as the CUDA kernel, in dense tensor ops."""
+    """Plain PyTorch version of K1 (``write_kv=True``), K1r and, with
+    ``mla_v_dim``, K5's decode form (``v_pool`` and ``v_new`` unused): the
+    same function as the CUDA kernels, in dense tensor ops."""
     B, QH, D = q.shape
     KH = k_pool.shape[2]
     G = QH // KH
@@ -164,12 +210,10 @@ def paged_attention_decode_plain(
         sm_scale = 1.0 / math.sqrt(D)
     layer = int(layer)
     if write_kv:
-        keep = slot_pages != 0  # zero page: discard
-        pages, offs = slot_pages[keep].long(), slot_offsets[keep].long()
-        k_pool[layer, pages, :, offs] = k_new[keep].to(dt)
-        v_pool[layer, pages, :, offs] = v_new[keep].to(dt)
-    k = _gather_pages(k_pool[layer], page_tables)
-    v = _gather_pages(v_pool[layer], page_tables)
+        _write_slots(k_pool, layer, k_new, slot_pages, slot_offsets)
+        if mla_v_dim is None:
+            _write_slots(v_pool, layer, v_new, slot_pages, slot_offsets)
+    k, v = _kv_values(k_pool, v_pool, layer, page_tables, mla_v_dim)
     qg = _op_round(q.reshape(B, KH, G, D), dt)
     s = torch.matmul(qg, k.transpose(-1, -2)) * sm_scale  # [B, KH, G, S]
     pos = torch.arange(k.shape[2], device=q.device)[None]
@@ -177,7 +221,7 @@ def paged_attention_decode_plain(
     valid = pos < sl
     if window:
         valid = valid & (pos >= (sl - window).clamp(min=0))
-    o = _masked_softmax_pv(s, valid[:, None, None, :], v, dt)
+    o = _pad_lanes(_masked_softmax_pv(s, valid[:, None, None, :], v, dt), D)
     return o.reshape(B, QH, D).to(dt).to(q.dtype), k_pool, v_pool
 
 
@@ -256,7 +300,23 @@ def paged_attention_decode(
     Replaces the Pallas ``_decode_write_kernel``.  Bound on the card by
     device-memory bytes (each row's K/V is read once, ~G FLOPs a byte);
     ``csrc/paged_decode.cu`` splits each (row, kv head) into 256-token
-    blocks so that a small batch still fills the SMs, then merges them."""
+    blocks so that a small batch still fills the SMs, then merges them.
+
+    ``mla_v_dim``: K5's decode form (``_decode_write_kernel_mla``).
+    ``k_pool`` is the single latent pool, ``k_new`` the latent entries;
+    scores use all lanes, values the first ``mla_v_dim``; ``v_pool`` and
+    ``v_new`` are ignored and ``None`` is returned in ``v_pool``'s place."""
+    if mla_v_dim is not None:
+        _mla_mode(k_pool, window, k_scales, v_scales, logit_softcap)
+        if _on_cpu(q, k_pool, page_tables, seq_lens, k_new, slot_pages, slot_offsets):
+            out = paged_attention_decode_plain(
+                q, k_pool, None, page_tables, seq_lens, layer, k_new, None,
+                slot_pages, slot_offsets, sm_scale=sm_scale, mla_v_dim=mla_v_dim)[0]
+        else:
+            out = paged_attention_decode_mla(
+                q, k_pool, page_tables, seq_lens, layer, k_new, slot_pages,
+                slot_offsets, sm_scale=sm_scale, mla_v_dim=mla_v_dim)
+        return out, k_pool, None
     _unsupported(mla_v_dim, k_scales, v_scales, logit_softcap, k_pool.dtype)
     if _on_cpu(q, k_pool, v_pool, page_tables, seq_lens, k_new, v_new,
                slot_pages, slot_offsets):
@@ -376,10 +436,12 @@ def write_prefill_kv(
 def paged_attention_verify_plain(
     q, k_pool, v_pool, page_tables, seq_lens, layer,
     k_new, v_new, slot_pages, slot_offsets, *, sm_scale=None, window=None,
+    mla_v_dim=None,
 ):
-    """Plain PyTorch version of K4: the same function as the CUDA kernel,
-    in dense tensor ops.  Keys past the page-table width do not exist
-    (the table is gathered whole), as the kernel clamps its range."""
+    """Plain PyTorch version of K4 and, with ``mla_v_dim``, of K5's verify
+    form (``v_pool`` and ``v_new`` unused): the same function as the CUDA
+    kernels, in dense tensor ops.  Keys past the page-table width do not
+    exist (the table is gathered whole), as the kernels clamp their range."""
     B, T, QH, D = q.shape
     KH = k_pool.shape[2]
     G = QH // KH
@@ -387,12 +449,10 @@ def paged_attention_verify_plain(
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
     layer = int(layer)
-    keep = slot_pages != 0  # zero page: discard
-    pages, offs = slot_pages[keep].long(), slot_offsets[keep].long()
-    k_pool[layer, pages, :, offs] = k_new[keep].to(dt)
-    v_pool[layer, pages, :, offs] = v_new[keep].to(dt)
-    k = _gather_pages(k_pool[layer], page_tables)
-    v = _gather_pages(v_pool[layer], page_tables)
+    _write_slots(k_pool, layer, k_new, slot_pages, slot_offsets)
+    if mla_v_dim is None:
+        _write_slots(v_pool, layer, v_new, slot_pages, slot_offsets)
+    k, v = _kv_values(k_pool, v_pool, layer, page_tables, mla_v_dim)
     # [B, T, KH, G, D] -> [B, KH, T*G, D], row = t * G + g
     qg = q.reshape(B, T, KH, G, D).permute(0, 2, 1, 3, 4).reshape(B, KH, T * G, D)
     s = torch.matmul(_op_round(qg, dt), k.transpose(-1, -2)) * sm_scale
@@ -404,7 +464,7 @@ def paged_attention_verify_plain(
     valid = (pos < limit) & (pos < seq_lens.long()[:, None, None])
     if window:
         valid = valid & (pos >= (limit - window).clamp(min=0))
-    o = _masked_softmax_pv(s, valid[:, None], v, dt)  # [B, KH, R, D]
+    o = _pad_lanes(_masked_softmax_pv(s, valid[:, None], v, dt), D)  # [B, KH, R, D]
     o = o.reshape(B, KH, T, G, D).permute(0, 2, 1, 3, 4).reshape(B, T, QH, D)
     return o.to(dt).to(q.dtype), k_pool, v_pool
 
@@ -439,7 +499,21 @@ def paged_attention_verify(
     queries.  ``csrc/paged_verify.cu`` writes the tokens in one launch,
     then splits each (row, kv head) into 256-token blocks that hold all
     T*G query rows of the head (bf16 on the tensor cores), and merges the
-    blocks' partials."""
+    blocks' partials.
+
+    ``mla_v_dim``: K5's verify form (``_verify_write_kernel_mla``), as in
+    :func:`paged_attention_decode`."""
+    if mla_v_dim is not None:
+        _mla_mode(k_pool, window, k_scales, v_scales, logit_softcap)
+        if _on_cpu(q, k_pool, page_tables, seq_lens, k_new, slot_pages, slot_offsets):
+            out = paged_attention_verify_plain(
+                q, k_pool, None, page_tables, seq_lens, layer, k_new, None,
+                slot_pages, slot_offsets, sm_scale=sm_scale, mla_v_dim=mla_v_dim)[0]
+        else:
+            out = paged_attention_verify_mla(
+                q, k_pool, page_tables, seq_lens, layer, k_new, slot_pages,
+                slot_offsets, sm_scale=sm_scale, mla_v_dim=mla_v_dim)
+        return out, k_pool, None
     _unsupported(mla_v_dim, k_scales, v_scales, logit_softcap, k_pool.dtype)
     if _on_cpu(q, k_pool, v_pool, page_tables, seq_lens, k_new, v_new,
                slot_pages, slot_offsets):
@@ -489,10 +563,210 @@ def paged_attention_verify(
     return out.to(q.dtype), k_pool, v_pool
 
 
+# ---------------------------------------------------------------------------
+# K6: prefill page writer of the single (MLA latent) pool
+# ---------------------------------------------------------------------------
+
+
+def write_prefill_kv_single_plain(k_pool, k_new, pages, layer):
+    """Plain PyTorch version of K6."""
+    KH, T, D = k_new.shape
+    TP = k_pool.shape[3]
+    keep = pages != 0  # zero page: discard
+    chunks = k_new.to(k_pool.dtype).reshape(KH, T // TP, TP, D).transpose(0, 1)
+    k_pool[int(layer), pages[keep].long()] = chunks[keep]
+    return k_pool
+
+
+def write_prefill_kv_single(
+    k_pool: torch.Tensor,  # [L, num_pages, num_kv_heads, page_tokens, head_dim]
+    k_new: torch.Tensor,  # [num_kv_heads, T, head_dim]; T multiple of page_tokens
+    pages: torch.Tensor,  # [T // page_tokens] int32 physical pages (0 = discard)
+    layer,
+    *,
+    scale=None,
+) -> torch.Tensor:
+    """K6: write a prefill chunk's latent entries into the single pool's
+    pages, in place.  Returns ``k_pool``.
+
+    Replaces the Pallas ``_prefill_write_single_kernel``.  A pure copy,
+    bound by device-memory bytes: ``csrc/prefill_write.cu``'s K2 kernel
+    with one buffer, one block per (page, kv head) slab moving 16-byte
+    vectors."""
+    _unsupported(k_scales=scale, pool_dtype=k_pool.dtype)
+    KH, T, D = k_new.shape
+    TP = k_pool.shape[3]
+    if T % TP:
+        raise ValueError(f"prefill length {T} must be a multiple of page_tokens {TP}")
+    if _on_cpu(k_pool, k_new, pages):
+        return write_prefill_kv_single_plain(k_pool, k_new, pages, layer)
+    if k_pool.dim() != 5 or not k_pool.is_contiguous():
+        raise ValueError(f"k_pool must be a contiguous [L, pages, KH, page_tokens, D], "
+                         f"got {tuple(k_pool.shape)}")
+    L, P, KHp, _, Dp = k_pool.shape
+    if (KHp, Dp) != (KH, D):
+        raise ValueError(f"k_new {tuple(k_new.shape)} does not fit the pool {tuple(k_pool.shape)}")
+    layer = _layer_index(layer, L)
+    k_new = k_new.to(k_pool.dtype).contiguous()
+    n = T // TP
+    _require(pages, "pages", torch.int32, (n,))
+    _require_aligned("K6", k_new, k_pool)
+    lib = _build.load("prefill_write")
+    rc = lib.kvc_prefill_write_single(
+        k_new.data_ptr(), k_pool.data_ptr(), pages.data_ptr(), layer, P, KH, n,
+        TP * D * k_pool.element_size(), _stream(k_pool))
+    _build.check(rc, "prefill_write_single")
+    write_prefill_kv_single.launches += 1
+    return k_pool
+
+
+# ---------------------------------------------------------------------------
+# K5 (and K3's MLA mode): absorbed latent attention over the single pool
+# ---------------------------------------------------------------------------
+
+
+def _mla_mode(k_pool, window=None, k_scales=None, v_scales=None, logit_softcap=None):
+    """Refuse what the MLA mode does not port: several kv heads, a window,
+    int8 scales, soft-capping, other pool types."""
+    _unsupported(None, k_scales, v_scales, logit_softcap, k_pool.dtype)
+    if k_pool.dim() != 5 or k_pool.shape[2] != 1:
+        raise NotImplementedError(
+            "the MLA mode is ported for one latent pool [L, pages, 1, page_tokens, D], "
+            f"got {tuple(k_pool.shape)}")
+    if window:
+        raise NotImplementedError("a window in the MLA mode is not ported yet")
+
+
+def _mla_tiles(rows: int, dtype) -> tuple[int, int]:
+    """(query tiles, rows a tile) of ``rows`` query rows: bf16 blocks hold
+    up to 64 rows in m-tiles of 16, spread evenly over the tiles; float32
+    blocks hold 16."""
+    cap = MLA_ROWS[dtype]
+    tiles = -(-rows // cap)
+    return tiles, 16 * -(-(-(-rows // tiles)) // 16)
+
+
+@functools.lru_cache(maxsize=None)
+def mla_wave_blocks(device: torch.device, dtype, qrows: int) -> int:
+    """Blocks of the MLA attention pass (``qrows`` query rows a block) that
+    ``device`` runs at once, as the CUDA occupancy API gives them."""
+    lib = _build.load("mla_attend")
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.kvc_mla_wave_blocks(KERNEL_DTYPES[dtype], qrows, ctypes.byref(blocks))
+    _build.check(rc, "mla_wave_blocks")
+    return max(blocks.value, 1)
+
+
+def mla_attend_launch(q, pool, page_tables, q_starts, kv_lens, layer, *,
+                      sm_scale=None, mla_v_dim=MLA_V_DIM, k_new=None,
+                      slot_pages=None, slot_offsets=None, split=None):
+    """One call of ``csrc/mla_attend.cu`` on CUDA tensors: optionally store
+    the fed latent entries ``k_new`` [N, Tq, 1, D] at their slots, then
+    query row r of chunk row n (head r % H of token r // H) attends the
+    row's latent entries.  ``q`` [N, Tq, H, D]; ``q_starts`` None means a
+    decode/verify row, whose first query sits at ``kv_lens - Tq``.  Keys
+    are split into blocks of ``split`` (None: a split-K pass sized to fill
+    the card, merged by a third launch; prefill passes the table width, a
+    single split).  Returns ``[N, Tq, H, D]`` in the pool's type, lanes
+    past ``mla_v_dim`` zero."""
+    if pool.dim() != 5 or not pool.is_contiguous():
+        raise ValueError(f"the latent pool must be a contiguous [L, pages, 1, page_tokens, D], "
+                         f"got {tuple(pool.shape)}")
+    L, P, KH, TP, D = pool.shape
+    N, Tq, H, Dq = q.shape
+    if KH != 1 or D != MLA_HEAD_DIM or Dq != D or mla_v_dim != MLA_V_DIM:
+        raise ValueError(
+            f"the MLA kernels take one latent pool of {MLA_HEAD_DIM} lanes with "
+            f"{MLA_V_DIM} value lanes: q {tuple(q.shape)}, pool {tuple(pool.shape)}, "
+            f"mla_v_dim {mla_v_dim}")
+    layer = _layer_index(layer, L)
+    dt = pool.dtype
+    qc = q.to(dt).contiguous()
+    maxp = page_tables.shape[1]
+    _require(page_tables, "page_tables", torch.int32, (N, maxp))
+    _require(kv_lens, "kv_lens", torch.int32, (N,))
+    if q_starts is not None:
+        _require(q_starts, "q_starts", torch.int32, (N,))
+    ptrs = (None, None, None)
+    if k_new is not None:
+        k_new = k_new.to(dt).contiguous()
+        _require(k_new, "k_new", dt, (N, Tq, 1, D))
+        _require(slot_pages, "slot_pages", torch.int32, (N, Tq))
+        _require(slot_offsets, "slot_offsets", torch.int32, (N, Tq))
+        _require_aligned("K5", k_new)
+        ptrs = (k_new.data_ptr(), slot_pages.data_ptr(), slot_offsets.data_ptr())
+    _require_aligned("the MLA kernels", qc, pool)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    rows = Tq * H
+    tiles, qrows = _mla_tiles(rows, dt)
+    width = maxp * TP
+    if split is None:
+        # one wave of blocks for the card, but no block under MLA_MIN_SPLIT keys
+        per_row = max(1, -(-mla_wave_blocks(q.device, dt, qrows) // (N * tiles)))
+        split = max(MLA_MIN_SPLIT, -(-width // per_row))
+    split = -(-max(split, 1) // MLA_KEY_TILE) * MLA_KEY_TILE
+    splits = max(-(-width // split), 1)
+    out = torch.empty_like(qc)
+    # per-split partials (acc [R], max, sum) of each query row
+    scratch = torch.empty(N * splits * rows * (MLA_V_DIM + 2) if splits > 1 else 0,
+                          dtype=torch.float32, device=q.device)
+    lib = _build.load("mla_attend")
+    rc = lib.kvc_mla_attend(
+        KERNEL_DTYPES[dt], qc.data_ptr(), pool.data_ptr(), page_tables.data_ptr(),
+        None if q_starts is None else q_starts.data_ptr(), kv_lens.data_ptr(),
+        *ptrs, out.data_ptr(), scratch.data_ptr() if splits > 1 else None,
+        N, Tq, H, layer, P, TP, maxp, qrows, split, float(sm_scale), _stream(q),
+    )
+    _build.check(rc, "mla_attend")
+    return out
+
+
+def paged_attention_decode_mla(q, k_pool, page_tables, seq_lens, layer, k_new,
+                               slot_pages, slot_offsets, *, sm_scale=None,
+                               mla_v_dim=MLA_V_DIM):
+    """K5, decode form, on CUDA tensors: the kernel behind
+    ``paged_attention_decode(..., mla_v_dim=...)``.  q [B, H, D], k_new
+    [B, 1, D], slots [B]; returns [B, H, D].
+
+    Replaces the Pallas ``_decode_write_kernel_mla``.  Bound by
+    device-memory bytes (each latent entry is read once for all H heads,
+    ~29 FLOPs a byte at H=16); ``csrc/mla_attend.cu`` stores the token,
+    splits each row's keys over blocks and merges their partials."""
+    out = mla_attend_launch(
+        q[:, None], k_pool, page_tables, None, seq_lens, layer, sm_scale=sm_scale,
+        mla_v_dim=mla_v_dim, k_new=k_new[:, None], slot_pages=slot_pages[:, None],
+        slot_offsets=slot_offsets[:, None])
+    paged_attention_decode_mla.launches += 1
+    return out[:, 0].to(q.dtype)
+
+
+def paged_attention_verify_mla(q, k_pool, page_tables, seq_lens, layer, k_new,
+                               slot_pages, slot_offsets, *, sm_scale=None,
+                               mla_v_dim=MLA_V_DIM):
+    """K5, verify form, on CUDA tensors: the kernel behind
+    ``paged_attention_verify(..., mla_v_dim=...)``.  q [B, T, H, D], k_new
+    [B, T, 1, D], slots [B, T]; returns [B, T, H, D].
+
+    Replaces the Pallas ``_verify_write_kernel_mla``: decode with T fed
+    tokens, whose T*H query rows (80 at T=5, H=16) are tiled over blocks
+    of at most 64."""
+    out = mla_attend_launch(
+        q, k_pool, page_tables, None, seq_lens, layer, sm_scale=sm_scale,
+        mla_v_dim=mla_v_dim, k_new=k_new, slot_pages=slot_pages,
+        slot_offsets=slot_offsets)
+    paged_attention_verify_mla.launches += 1
+    return out.to(q.dtype)
+
+
 paged_attention_decode.launches = 0
 paged_attention.launches = 0
 write_prefill_kv.launches = 0
 paged_attention_verify.launches = 0
+write_prefill_kv_single.launches = 0
+paged_attention_decode_mla.launches = 0
+paged_attention_verify_mla.launches = 0
 
 
 # ---------------------------------------------------------------------------

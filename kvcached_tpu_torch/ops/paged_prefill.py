@@ -12,6 +12,10 @@ tensors only; its launches are counted in
 ``paged_prefill_attention_batch.launches``.  :func:`paged_prefill_attention`
 is the N=1 view.  Rows are independent in the kernel, so a batch is
 bit-identical to N serial calls; rows with ``kv_len == 0`` give zeros.
+
+The MLA mode (``mla_v_dim``, K3m: the same Pallas kernel over the single
+latent pool) launches ``csrc/mla_attend.cu`` through
+:func:`paged_prefill_attention_batch_mla`, counted there.
 """
 
 from __future__ import annotations
@@ -23,16 +27,20 @@ import torch
 from . import _build
 from .paged_attention import (
     KERNEL_DTYPES,
-    _gather_pages,
+    MLA_V_DIM,
+    _kv_values,
     _layer_index,
     _masked_softmax_pv,
+    _mla_mode,
     _on_cpu,
     _op_round,
+    _pad_lanes,
     _require,
     _require_aligned,
     _require_pools,
     _stream,
     _unsupported,
+    mla_attend_launch,
 )
 
 #: query rows (token x GQA head) one CUDA block handles; the GQA group
@@ -42,9 +50,10 @@ KERNEL_ROWS = 64
 
 def paged_prefill_attention_batch_plain(
     q, k_pool, v_pool, page_tables, q_starts, kv_lens, layer=0,
-    *, sm_scale=None, window=None,
+    *, sm_scale=None, window=None, mla_v_dim=None,
 ):
-    """Plain PyTorch version of K3."""
+    """Plain PyTorch version of K3 and, with ``mla_v_dim``, of K3m (values
+    from the first ``mla_v_dim`` lanes of ``k_pool``; ``v_pool`` unused)."""
     N, T, QH, D = q.shape
     KH = k_pool.shape[2]
     G = QH // KH
@@ -52,8 +61,7 @@ def paged_prefill_attention_batch_plain(
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
     layer = int(layer)
-    k = _gather_pages(k_pool[layer], page_tables)  # [N, KH, S, D]
-    v = _gather_pages(v_pool[layer], page_tables)
+    k, v = _kv_values(k_pool, v_pool, layer, page_tables, mla_v_dim)  # [N, KH, S, D]
     # [N, T, QH, D] -> [N, KH, T*G, D] with row r = t*G + g
     qg = _op_round(
         q.reshape(N, T, KH, G, D).permute(0, 2, 1, 3, 4).reshape(N, KH, T * G, D),
@@ -66,7 +74,7 @@ def paged_prefill_attention_batch_plain(
     valid = (kv <= q_pos[:, :, None]) & (kv < kv_lens.long()[:, None, None])
     if window:
         valid = valid & (kv > q_pos[:, :, None] - window)
-    o = _masked_softmax_pv(s, valid[:, None], v, dt)  # [N, KH, R, D]
+    o = _pad_lanes(_masked_softmax_pv(s, valid[:, None], v, dt), D)  # [N, KH, R, D]
     o = o.reshape(N, KH, T, G, D).permute(0, 2, 1, 3, 4).reshape(N, T, QH, D)
     return o.to(dt).to(q.dtype)
 
@@ -95,7 +103,19 @@ def paged_prefill_attention_batch(
     tensor-core operations for long chunks; ``csrc/paged_prefill.cu``
     runs bf16 pools' Q.K^T and P.V on the tensor cores (``mma.sync``,
     64-key tiles in shared memory) and skips key tiles past each block's
-    causal limit."""
+    causal limit.
+
+    ``mla_v_dim``: K3m, the MLA mode over the single latent pool (values
+    its first ``mla_v_dim`` lanes, ``v_pool`` ignored)."""
+    if mla_v_dim is not None:
+        _mla_mode(k_pool, window, k_scales, v_scales, logit_softcap)
+        if _on_cpu(q, k_pool, page_tables, q_starts, kv_lens):
+            return paged_prefill_attention_batch_plain(
+                q, k_pool, None, page_tables, q_starts, kv_lens, layer,
+                sm_scale=sm_scale, mla_v_dim=mla_v_dim)
+        return paged_prefill_attention_batch_mla(
+            q, k_pool, page_tables, q_starts, kv_lens, layer, sm_scale=sm_scale,
+            mla_v_dim=mla_v_dim)
     _unsupported(mla_v_dim, k_scales, v_scales, logit_softcap, k_pool.dtype)
     if _on_cpu(q, k_pool, v_pool, page_tables, q_starts, kv_lens):
         return paged_prefill_attention_batch_plain(
@@ -133,7 +153,26 @@ def paged_prefill_attention_batch(
     return out.to(q.dtype)
 
 
+def paged_prefill_attention_batch_mla(q, k_pool, page_tables, q_starts, kv_lens,
+                                      layer=0, *, sm_scale=None, mla_v_dim=MLA_V_DIM):
+    """K3m on CUDA tensors: the kernel behind
+    ``paged_prefill_attention_batch(..., mla_v_dim=...)``.  q [N, T, H, D];
+    returns [N, T, H, D].
+
+    Replaces the Pallas ``_prefill_kernel`` in MLA mode.  Bound by
+    tensor-core operations for long chunks (each latent entry serves
+    T*H query rows); ``csrc/mla_attend.cu`` gives each block 64 query rows
+    (4 tokens x 16 heads) and all of their keys, up to the block's causal
+    limit, in one split."""
+    width = page_tables.shape[1] * k_pool.shape[3]
+    out = mla_attend_launch(q, k_pool, page_tables, q_starts, kv_lens, layer,
+                            sm_scale=sm_scale, mla_v_dim=mla_v_dim, split=width)
+    paged_prefill_attention_batch_mla.launches += 1
+    return out.to(q.dtype)
+
+
 paged_prefill_attention_batch.launches = 0
+paged_prefill_attention_batch_mla.launches = 0
 
 
 def paged_prefill_attention(

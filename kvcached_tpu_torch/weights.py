@@ -1,8 +1,9 @@
 """Parameters from the JAX package's layout.
 
-:func:`params_from_jax` turns the JAX package's Llama parameter tree, as
-numpy arrays (``jax.tree.map(np.asarray, params)``), into the port's
-:class:`~kvcached_tpu_torch.models.llama.LlamaModel`.  Both packages use the
+:func:`params_from_jax` turns the JAX package's Llama or MLA parameter
+tree, as numpy arrays (``jax.tree.map(np.asarray, params)``), into the
+port's :class:`~kvcached_tpu_torch.models.llama.LlamaModel` or
+:class:`~kvcached_tpu_torch.models.mla.MLAModel`.  Both packages use the
 same names and layouts (stacked layers, input-major projections), so the
 two compute the same function on the same numbers.  This module imports
 neither JAX nor the JAX package: it takes plain numpy.
@@ -15,6 +16,7 @@ import torch
 
 from .device.pool import resolve_device
 from .models.llama import LlamaConfig, LlamaModel
+from .models.mla import MLAConfig, MLAModel
 
 
 def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -24,13 +26,16 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)  # a copy
 
 
-def params_from_jax(tree: dict, cfg: LlamaConfig, *, device=None) -> LlamaModel:
+def params_from_jax(tree: dict, cfg: LlamaConfig | MLAConfig, *,
+                    device=None) -> LlamaModel:
     """``{"embed", "layers": {...}, "final_norm", "lm_head"}`` of numpy
-    arrays → :class:`LlamaModel` on ``device`` (default: the card) in
+    arrays → :class:`LlamaModel` (an :class:`MLAModel` for an
+    :class:`MLAConfig`) on ``device`` (default: the card) in
     ``cfg.dtype``."""
     dev = resolve_device(device)
     dt = cfg.tdtype
-    return LlamaModel(
+    model = MLAModel if isinstance(cfg, MLAConfig) else LlamaModel
+    return model(
         cfg,
         embed=_tensor(tree["embed"], dt, dev),
         layers={k: _tensor(v, dt, dev) for k, v in tree["layers"].items()},

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K4) against their plain PyTorch versions, on
+"""The port's CUDA kernels (K1-K6, K3m) against their plain PyTorch versions, on
 the card.  These tests carry the ``cuda`` marker and skip without a card (a
 CUDA kernel has no CPU mode); on the H100 run
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from kvcached_tpu_torch import ops
+from kvcached_tpu_torch.ops.paged_attention import MLA_HEAD_DIM, MLA_V_DIM
 
 L, P, KH, QH, TP, D = 2, 40, 2, 8, 16, 128
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -150,3 +151,81 @@ def test_verify_kernel_matches_plain(card):
     for dtype in TOL:
         for window in (None, 24):
             _verify_case(card, dtype, window)
+
+
+def _mla_case(card, dtype):
+    """K5 (decode), K5v (verify, T=5: a row overhanging its table by 2, a
+    row whose writes are all discarded), K6 and K3m at DeepSeek-V2-Lite's
+    widths: one latent kv head of 640 lanes, values its first 512, 16 query
+    heads."""
+    H, Dl, R = 16, MLA_HEAD_DIM, MLA_V_DIM
+    scale = 192 ** -0.5
+    rng = np.random.default_rng(3)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)  # noqa: E731
+    pool = rng.standard_normal((L, P, 1, TP, Dl)).astype(np.float32)
+    pool[:, 0] = 0.0
+    kp = t(pool).to(dtype)
+    B, maxp = 4, 6
+    pages = rng.permutation(np.arange(1, P))
+    for T, seq_lens, pad in ((1, np.array([90, 33, 0, 7], np.int32), 2),
+                             (5, np.array([90, 33, maxp * TP + 2, 0], np.int32), 3)):
+        pt = np.zeros((B, maxp), np.int32)
+        for b, s in enumerate(seq_lens):
+            n = min(-(-s // TP), maxp)
+            pt[b, :n] = pages[b * maxp: b * maxp + n]
+        pos = np.maximum(seq_lens[:, None] - T + np.arange(T)[None], 0)
+        inside = pos < maxp * TP
+        slot_pages = np.where(inside, np.take_along_axis(pt, np.minimum(pos // TP, maxp - 1), 1), 0)
+        slot_pages[3] = 0
+        q = t(rng.standard_normal((B, T, H, Dl)).astype(np.float32)).to(dtype)
+        ent = t(rng.standard_normal((B, T, 1, Dl)).astype(np.float32)).to(dtype)
+        args = (t(pt), t(seq_lens), 1)
+        slots = (t(slot_pages.astype(np.int32)), t((pos % TP).astype(np.int32)))
+        kp2 = kp.clone()
+        if T == 1:
+            out_k = ops.paged_attention_decode(q[:, 0], kp, None, *args, ent[:, 0], None,
+                                               *(s[:, 0].contiguous() for s in slots),
+                                               sm_scale=scale, mla_v_dim=R)[0][:, None]
+            out_p = ops.paged_attention_decode_plain(
+                q[:, 0], kp2, None, *args, ent[:, 0], None, *(s[:, 0] for s in slots),
+                sm_scale=scale, mla_v_dim=R)[0][:, None]
+        else:
+            out_k = ops.paged_attention_verify(q, kp, None, *args, ent, None, *slots,
+                                               sm_scale=scale, mla_v_dim=R)[0]
+            out_p = ops.paged_attention_verify_plain(q, kp2, None, *args, ent, None, *slots,
+                                                     sm_scale=scale, mla_v_dim=R)[0]
+        torch.cuda.synchronize()
+        case = f"{dtype}, T={T}"
+        assert torch.equal(kp, kp2), case
+        live = t((seq_lens[:, None] - T + np.arange(T)[None] >= 0) & inside)
+        assert (out_k.float() - out_p.float())[live].abs().max().item() <= TOL[dtype], case
+        assert not out_k[pad].any() and not out_k[..., R:].any(), case
+    # K6, then K3m over a cached-prefix row, a fresh row and a kv_len = 0 row
+    ent = t(rng.standard_normal((1, 3 * TP, Dl)).astype(np.float32)).to(dtype)
+    chunk = t(np.array([pages[30], 0, pages[31]], np.int32))
+    kp2 = kp.clone()
+    ops.write_prefill_kv_single(kp, ent, chunk, 0)
+    ops.write_prefill_kv_single_plain(kp2, ent, chunk, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(kp, kp2), dtype
+    N, T = 3, 48
+    pt = np.zeros((N, maxp), np.int32)
+    pt[0, :6] = pages[:6]
+    pt[1, :3] = pages[6:9]
+    q_starts, kv_lens = np.array([48, 0, 0], np.int32), np.array([88, 41, 0], np.int32)
+    q = t(rng.standard_normal((N, T, H, Dl)).astype(np.float32)).to(dtype)
+    a = (q, kp, None, t(pt), t(q_starts), t(kv_lens), 1)
+    out_k = ops.paged_prefill_attention_batch(*a, sm_scale=scale, mla_v_dim=R)
+    out_p = ops.paged_prefill_attention_batch_plain(*a, sm_scale=scale, mla_v_dim=R)
+    for n in range(N):
+        live = max(int(kv_lens[n] - q_starts[n]), 0)
+        if live:
+            err = (out_k[n, :live].float() - out_p[n, :live].float()).abs().max().item()
+            assert err <= TOL[dtype], dtype
+    assert not out_k[2].any() and not out_k[..., R:].any(), dtype
+
+
+@pytest.mark.cuda
+def test_mla_kernels_match_plain(card):
+    for dtype in TOL:
+        _mla_case(card, dtype)
