@@ -57,7 +57,19 @@ Phases (each prints its own lines; any failure exits nonzero):
    and read just after each (K5, K6, K3m, and K5v with spec decode, each
    > 0); the kernel path's last-position logits (prefill, decode, verify)
    within 1e-2 of the plain path's at float32; float32 spec tokens
-   identical to plain decode; GREW/SHRANK/CORRECT under a live limit.
+   identical to plain decode; GREW/SHRANK/CORRECT under a live limit;
+9. byte KV pools, after phase 7 while the 8B weights are loaded: the pages
+   one HBM budget holds at bf16, int8 and e4m3 (a byte pool twice bf16's);
+   phase 4's request mix on an int8 and on an e4m3 pool (launch counters
+   zeroed just before and read just after, by pool type: K1, K2, K3 of each
+   mode > 0), tok/s and one decode dispatch's device busy share; at float32
+   on each byte pool, the kernel path's last-position logits within 1e-2 of
+   the plain path's and spec decode's greedy tokens identical to plain
+   decode (K4's launches of each mode > 0); GREW/SHRANK/CORRECT on an int8
+   pool.  Phase 3 runs K1, K1r, K2, K3 and K4 on int8 and e4m3 pools too
+   (bf16 q and new K/V, int8 per-(layer, kv head) scales; pools bit-exact,
+   float32 outputs within 2e-2; K2 writes the reference's edge values: int8
+   halfway steps and clipping, e4m3 460, 464, 470, -500 and inf).
 
 The line before last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.  ``--rehearse`` runs the control flow
@@ -91,7 +103,7 @@ CARD = dict(
     mla_model="deepseek_v2_lite", MLA_H=16, MLA_D=640, MLA_R=512, MLA_SCALE=192 ** -0.5,
 )
 REHEARSE = dict(
-    B=3, KH=2, QH=4, D=128, TP=16, L=2, contexts=(40, 70, 23), window=24,
+    B=3, KH=2, QH=4, D=128, TP=32, L=2, contexts=(40, 70, 23), window=24,
     prefill_T=32, model="toy", max_new=48, shared_prefix=32, buckets=(32, 64),
     long_prompt=90, iters=2, spec_T=5, spec_new_exact=8,
     mla_model="toy", MLA_H=4, MLA_D=256, MLA_R=128, MLA_SCALE=128 ** -0.5,
@@ -198,13 +210,30 @@ def bound(bytes_, flops):
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
+def is_byte(torch, dtype):
+    """int8 and e4m3 pools: quantized on write, bf16 q and operands."""
+    return dtype in (torch.int8, torch.float8_e4m3fn)
+
+
+def _same_bytes(torch, a, b):
+    """Pools equal byte for byte (an e4m3 NaN never equals itself)."""
+    if a.element_size() == 1:
+        a, b = a.view(torch.uint8), b.view(torch.uint8)
+    return bool(torch.equal(a, b))
+
+
 class KernelCase:
-    """Shared inputs at the main path's decode/prefill shapes."""
+    """Shared inputs at the main path's decode/prefill shapes.  Byte pools
+    hold quantized N(0, 1) values (int8 with per-(layer, kv head) scales
+    ``self.scales``), and their q and new K/V are bf16, as the bf16 model
+    hands them over."""
 
     def __init__(self, torch, dev, S):
         self.torch, self.dev, self.S = torch, dev, S
         g = torch.Generator(device=dev).manual_seed(0)
         self.g = g
+        self.scales = tuple(0.02 + 0.03 * torch.rand((S["L"], S["KH"]), generator=g,
+                                                      device=dev) for _ in range(2))
         B, TP = S["B"], S["TP"]
         self.maxp = max(-(-c // TP) for c in S["contexts"])
         self.P = 1 + B * self.maxp + 4 * (S["prefill_T"] // TP + self.maxp)
@@ -223,13 +252,44 @@ class KernelCase:
     def randn(self, shape, dtype):
         return self.torch.randn(shape, generator=self.g, device=self.dev).to(dtype)
 
+    def io(self, dtype):
+        """The type of q and the new K/V given to the kernels of a pool."""
+        return self.torch.bfloat16 if is_byte(self.torch, dtype) else dtype
+
+    def scale_kw(self, dtype):
+        """The attention kernels' int8 scale arguments (none for others)."""
+        if dtype != self.torch.int8:
+            return {}
+        return dict(k_scales=self.scales[0], v_scales=self.scales[1])
+
     def pools(self, dtype):
+        from kvcached_tpu_torch.ops import quantize_kv
+
         S = self.S
         shape = (S["L"], self.P, S["KH"], S["TP"], S["D"])
-        k, v = self.randn(shape, dtype), self.randn(shape, dtype)
+        if is_byte(self.torch, dtype):
+            k, v = (quantize_kv(self.randn(shape, self.torch.float32), dtype,
+                                sc[:, None, :, None, None]) for sc in self.scales)
+        else:
+            k, v = self.randn(shape, dtype), self.randn(shape, dtype)
         k[:, 0] = 0
         v[:, 0] = 0
         return k, v
+
+    def gather(self, pool, layer, table, which):
+        """Layer ``layer`` of ``pool`` gathered through ``table`` into a
+        contiguous [N, KH, width, D] in the pool's compute type: a byte
+        pool dequantized to bf16 (``which`` 0 = K, 1 = V scales), the
+        library yardstick's input."""
+        torch = self.torch
+        N, KH, D = table.shape[0], pool.shape[2], pool.shape[4]
+        x = pool[layer][table.long()].permute(0, 2, 1, 3, 4).reshape(N, KH, -1, D)
+        if is_byte(torch, pool.dtype):
+            x = x.float()
+            if pool.dtype == torch.int8:
+                x = x * self.scales[which][layer][None, :, None, None]
+            x = x.to(torch.bfloat16)
+        return x.contiguous()
 
 
 def _err(torch, a, b):
@@ -241,19 +301,22 @@ def kernel_decode(torch, ops, F, case, dtype, window, timed):
     S = case.S
     B, KH, QH, D, L = S["B"], S["KH"], S["QH"], S["D"], S["L"]
     kp, vp = case.pools(dtype)
-    q = case.randn((B, QH, D), dtype)
-    kn, vn = case.randn((B, KH, D), dtype), case.randn((B, KH, D), dtype)
+    q = case.randn((B, QH, D), case.io(dtype))
+    kn, vn = case.randn((B, KH, D), case.io(dtype)), case.randn((B, KH, D), case.io(dtype))
+    kw = case.scale_kw(dtype)
     args = (case.page_tables, case.seq_lens)
     slots = (case.slot_pages, case.slot_offsets)
     kp2, vp2 = kp.clone(), vp.clone()
-    out_k, _, _ = ops.paged_attention_decode(q, kp, vp, *args, 1, kn, vn, *slots, window=window)
-    out_p, _, _ = ops.paged_attention_decode_plain(q, kp2, vp2, *args, 1, kn, vn, *slots, window=window)
-    ro_k = ops.paged_attention(q, kp, vp, *args, 2, window=window)
+    out_k, _, _ = ops.paged_attention_decode(q, kp, vp, *args, 1, kn, vn, *slots,
+                                             window=window, **kw)
+    out_p, _, _ = ops.paged_attention_decode_plain(q, kp2, vp2, *args, 1, kn, vn, *slots,
+                                                   window=window, **kw)
+    ro_k = ops.paged_attention(q, kp, vp, *args, 2, window=window, **kw)
     ro_p = ops.paged_attention_decode_plain(q, kp, vp, *args, 2, None, None, None, None,
-                                            window=window, write_kv=False)[0]
+                                            window=window, write_kv=False, **kw)[0]
     torch.cuda.synchronize()
     res = {
-        "K1": dict(pools_bit_exact=bool(torch.equal(kp, kp2) and torch.equal(vp, vp2)),
+        "K1": dict(pools_bit_exact=_same_bytes(torch, kp, kp2) and _same_bytes(torch, vp, vp2),
                    max_abs_err=_err(torch, out_k, out_p)),
         "K1r": dict(max_abs_err=_err(torch, ro_k, ro_p)),
     }
@@ -261,34 +324,32 @@ def kernel_decode(torch, ops, F, case, dtype, window, timed):
         return res
     it = S["iters"]
     eff = [min(c, window) if window else c for c in S["contexts"]]
-    isz = kp.element_size()
+    isz, qsz = kp.element_size(), q.element_size()
     kv_bytes = sum(eff) * KH * D * isz * 2
-    io_bytes = 2 * B * QH * D * isz + B * case.maxp * 4 + B * 4
+    io_bytes = 2 * B * QH * D * qsz + B * case.maxp * 4 + B * 4
     flops = 4 * QH * D * sum(eff)
     cyc = iter(range(10 ** 9))
     lay = lambda: next(cyc) % L  # noqa: E731
     k1 = lambda: ops.paged_attention_decode(  # noqa: E731
-        q, kp, vp, *args, lay(), kn, vn, *slots, window=window)
+        q, kp, vp, *args, lay(), kn, vn, *slots, window=window, **kw)
     res["K1"].update(
         ms=time_ms(torch, k1, it), host_ms=time_ms(torch, k1, it, hold=False),
         plain_ms=time_ms(torch, lambda: ops.paged_attention_decode_plain(
-            q, kp, vp, *args, lay(), kn, vn, *slots, window=window), it))
-    k1r = lambda: ops.paged_attention(q, kp, vp, *args, lay(), window=window)  # noqa: E731
+            q, kp, vp, *args, lay(), kn, vn, *slots, window=window, **kw), it))
+    k1r = lambda: ops.paged_attention(q, kp, vp, *args, lay(), window=window, **kw)  # noqa: E731
     res["K1r"].update(
         ms=time_ms(torch, k1r, it), host_ms=time_ms(torch, k1r, it, hold=False),
         plain_ms=time_ms(torch, lambda: ops.paged_attention_decode_plain(
             q, kp, vp, *args, lay(), None, None, None, None, window=window,
-            write_kv=False), it))
+            write_kv=False, **kw), it))
     res["K1"]["bound_ms"], res["K1"]["bound_by"] = bound(
-        kv_bytes + io_bytes + 4 * B * KH * D * isz + 2 * B * 4, flops)
+        kv_bytes + io_bytes + 2 * B * KH * D * (qsz + isz) + 2 * B * 4, flops)
     res["K1r"]["bound_ms"], res["K1r"]["bound_by"] = bound(kv_bytes + io_bytes, flops)
-    # yardstick: one SDPA call on the gathered, contiguous K/V of each layer
+    # yardstick: one SDPA call on the gathered, contiguous (dequantized) K/V
+    # of each layer
     Sx = case.maxp * S["TP"]
-    gathered = []
-    for layer in range(L):
-        k = kp[layer][case.page_tables.long()].permute(0, 2, 1, 3, 4).reshape(B, KH, Sx, D)
-        v = vp[layer][case.page_tables.long()].permute(0, 2, 1, 3, 4).reshape(B, KH, Sx, D)
-        gathered.append((k.contiguous(), v.contiguous()))
+    gathered = [(case.gather(kp, layer, case.page_tables, 0),
+                 case.gather(vp, layer, case.page_tables, 1)) for layer in range(L)]
     pos = torch.arange(Sx, device=case.dev)[None]
     valid = pos < case.seq_lens[:, None]
     if window:
@@ -302,31 +363,49 @@ def kernel_decode(torch, ops, F, case, dtype, window, timed):
 
 
 def kernel_prefill_write(torch, ops, case, dtype, timed):
+    """K2; into byte pools also the reference's edge values: int8 steps
+    exactly halfway (round half to even) and past ±127 (clipped); e4m3
+    460 and 464 (448), 470, -500 and inf (NaN: no saturation)."""
     S = case.S
     KH, D, TP, T, L = S["KH"], S["D"], S["TP"], S["prefill_T"], S["L"]
     n = T // TP
     kp, vp = case.pools(dtype)
-    kn, vn = case.randn((KH, T, D), dtype), case.randn((KH, T, D), dtype)
+    kn, vn = case.randn((KH, T, D), case.io(dtype)), case.randn((KH, T, D), case.io(dtype))
+    kw = {}
+    if dtype == torch.int8:
+        kw = dict(k_scale=case.scales[0][1].clone(), v_scale=case.scales[1][1])
+        kw["k_scale"][0] = 0.5
+        kn[0, 0, :6] = torch.tensor([0.25, 0.75, 1.25, -0.25, -0.75, 100.0])
+    elif dtype == torch.float8_e4m3fn:
+        kn[0, 0, :6] = torch.tensor([460.0, 464.0, 470.0, -500.0, float("inf"), 1e-9])
     pages = case.perm[-n:].clone()
     pages[1] = 0  # a discarded chunk
     kp2, vp2 = kp.clone(), vp.clone()
-    ops.write_prefill_kv(kp, vp, kn, vn, pages, 1)
-    ops.write_prefill_kv_plain(kp2, vp2, kn, vn, pages, 1)
+    ops.write_prefill_kv(kp, vp, kn, vn, pages, 1, **kw)
+    ops.write_prefill_kv_plain(kp2, vp2, kn, vn, pages, 1, **kw)
     torch.cuda.synchronize()
-    res = dict(pools_bit_exact=bool(torch.equal(kp, kp2) and torch.equal(vp, vp2)),
-               max_abs_err=_err(torch, kp, kp2))
+    res = dict(pools_bit_exact=_same_bytes(torch, kp, kp2) and _same_bytes(torch, vp, vp2),
+               max_abs_err=0.0 if is_byte(torch, dtype) else _err(torch, kp, kp2))
+    if is_byte(torch, dtype):
+        edge = kp[1, int(pages[0]), 0, 0, :6].view(torch.uint8).tolist()
+        want = ([0, 2, 2, 0, 0xFE, 0x7F] if dtype == torch.int8
+                else [0x7E, 0x7E, 0x7F, 0xFF, 0x7F, 0x00])
+        res["edge_values_ok"] = edge == want
     if not timed:
         return res
     it = S["iters"]
     cyc = iter(range(10 ** 9))
     lay = lambda: next(cyc) % L  # noqa: E731
-    k2 = lambda: ops.write_prefill_kv(kp, vp, kn, vn, pages, lay())  # noqa: E731
+    k2 = lambda: ops.write_prefill_kv(kp, vp, kn, vn, pages, lay(), **kw)  # noqa: E731
     res["ms"], res["host_ms"] = time_ms(torch, k2, it), time_ms(torch, k2, it, hold=False)
     res["plain_ms"] = time_ms(
-        torch, lambda: ops.write_prefill_kv_plain(kp, vp, kn, vn, pages, lay()), it)
+        torch, lambda: ops.write_prefill_kv_plain(kp, vp, kn, vn, pages, lay(), **kw), it)
     live = int((pages != 0).sum())
     res["bound_ms"], res["bound_by"] = bound(
-        2 * 2 * live * KH * TP * D * kp.element_size() + n * 4, 0)
+        2 * live * KH * TP * D * (kn.element_size() + kp.element_size()) + n * 4, 0)
+    if is_byte(torch, dtype):
+        res["library_ms"] = None  # no one PyTorch call quantizes and scatters
+        return res
     keep = (pages != 0).nonzero().squeeze(1)
     idx = pages[keep].long()
     kc = kn.reshape(KH, n, TP, D).transpose(0, 1)[keep].contiguous()
@@ -357,10 +436,12 @@ def kernel_prefill(torch, ops, F, case, dtype, window, timed):
         need = -(-int(kv_lens[r]) // TP)
         pt[r, :need] = case.perm[base + r * maxp: base + r * maxp + need]
     kp, vp = case.pools(dtype)
-    q = case.randn((N, T, QH, D), dtype)
-    out_k = ops.paged_prefill_attention_batch(q, kp, vp, pt, q_starts, kv_lens, 1, window=window)
+    q = case.randn((N, T, QH, D), case.io(dtype))
+    kw = case.scale_kw(dtype)
+    out_k = ops.paged_prefill_attention_batch(q, kp, vp, pt, q_starts, kv_lens, 1,
+                                              window=window, **kw)
     out_p = ops.paged_prefill_attention_batch_plain(q, kp, vp, pt, q_starts, kv_lens, 1,
-                                                    window=window)
+                                                    window=window, **kw)
     torch.cuda.synchronize()
     live = [(r, slice(0, max(int(kv_lens[r] - q_starts[r]), 0))) for r in range(N)]
     err = max(_err(torch, out_k[r, s], out_p[r, s]) if s.stop else 0.0 for r, s in live)
@@ -371,10 +452,10 @@ def kernel_prefill(torch, ops, F, case, dtype, window, timed):
     cyc = iter(range(10 ** 9))
     lay = lambda: next(cyc) % L  # noqa: E731
     k3 = lambda: ops.paged_prefill_attention_batch(  # noqa: E731
-        q, kp, vp, pt, q_starts, kv_lens, lay(), window=window)
+        q, kp, vp, pt, q_starts, kv_lens, lay(), window=window, **kw)
     res["ms"], res["host_ms"] = time_ms(torch, k3, it), time_ms(torch, k3, it, hold=False)
     res["plain_ms"] = time_ms(torch, lambda: ops.paged_prefill_attention_batch_plain(
-        q, kp, vp, pt, q_starts, kv_lens, lay(), window=window), it)
+        q, kp, vp, pt, q_starts, kv_lens, lay(), window=window, **kw), it)
     # work this data needs: visible (query, key) pairs and each K/V read once
     Sx = maxp * TP
     qpos = q_starts.long()[:, None] + torch.arange(T, device=dev)[None]
@@ -386,12 +467,10 @@ def kernel_prefill(torch, ops, F, case, dtype, window, timed):
     keys = int(vis.any(dim=1).sum())
     isz = kp.element_size()
     res["bound_ms"], res["bound_by"] = bound(
-        2 * N * T * QH * D * isz + 2 * keys * KH * D * isz, 4 * QH * D * pairs)
-    gathered = []
-    for layer in range(L):
-        k = kp[layer][pt.long()].permute(0, 2, 1, 3, 4).reshape(N, KH, Sx, D)
-        v = vp[layer][pt.long()].permute(0, 2, 1, 3, 4).reshape(N, KH, Sx, D)
-        gathered.append((k.contiguous(), v.contiguous()))
+        2 * N * T * QH * D * q.element_size() + 2 * keys * KH * D * isz,
+        4 * QH * D * pairs)
+    gathered = [(case.gather(kp, layer, pt, 0), case.gather(vp, layer, pt, 1))
+                for layer in range(L)]
     q4 = q.transpose(1, 2).contiguous()
     mask = vis[:, None]
     res["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -416,16 +495,19 @@ def kernel_verify(torch, ops, F, case, dtype, window, timed):
     slot_pages[2] = 0
     slot_offsets = (pos % TP).to(torch.int32)
     kp, vp = case.pools(dtype)
-    q = case.randn((B, T, QH, D), dtype)
-    kn, vn = case.randn((B, T, KH, D), dtype), case.randn((B, T, KH, D), dtype)
+    io = case.io(dtype)
+    q = case.randn((B, T, QH, D), io)
+    kn, vn = case.randn((B, T, KH, D), io), case.randn((B, T, KH, D), io)
+    kw = case.scale_kw(dtype)
     args = (case.page_tables, sl)
     slots = (slot_pages, slot_offsets)
     kp2, vp2 = kp.clone(), vp.clone()
-    out_k, _, _ = ops.paged_attention_verify(q, kp, vp, *args, 1, kn, vn, *slots, window=window)
+    out_k, _, _ = ops.paged_attention_verify(q, kp, vp, *args, 1, kn, vn, *slots,
+                                             window=window, **kw)
     out_p, _, _ = ops.paged_attention_verify_plain(q, kp2, vp2, *args, 1, kn, vn, *slots,
-                                                   window=window)
+                                                   window=window, **kw)
     torch.cuda.synchronize()
-    res = dict(pools_bit_exact=bool(torch.equal(kp, kp2) and torch.equal(vp, vp2)),
+    res = dict(pools_bit_exact=_same_bytes(torch, kp, kp2) and _same_bytes(torch, vp, vp2),
                max_abs_err=_err(torch, out_k[inside], out_p[inside]))
     if not timed:
         return res
@@ -433,11 +515,11 @@ def kernel_verify(torch, ops, F, case, dtype, window, timed):
     cyc = iter(range(10 ** 9))
     lay = lambda: next(cyc) % L  # noqa: E731
     k4 = lambda: ops.paged_attention_verify(  # noqa: E731
-        q, kp, vp, *args, lay(), kn, vn, *slots, window=window)
+        q, kp, vp, *args, lay(), kn, vn, *slots, window=window, **kw)
     res["ms"], res["host_ms"] = time_ms(torch, k4, it), time_ms(torch, k4, it, hold=False)
     res["parts"] = kernel_parts(torch, k4, it)
     res["plain_ms"] = time_ms(torch, lambda: ops.paged_attention_verify_plain(
-        q, kp, vp, *args, lay(), kn, vn, *slots, window=window), it)
+        q, kp, vp, *args, lay(), kn, vn, *slots, window=window, **kw), it)
     # work this data needs: visible (query, key) pairs, each row's keys read
     # once, q / the fed K,V / tables read, the output and the fed tokens written
     kv = torch.arange(width, device=dev)[None, None]
@@ -446,17 +528,14 @@ def kernel_verify(torch, ops, F, case, dtype, window, timed):
         vis &= kv > pos[:, :, None] - window
     pairs = int(vis.sum()) * QH
     keys = int(vis.any(dim=1).sum())
-    isz = kp.element_size()
+    isz, qsz = kp.element_size(), q.element_size()
     written = int((slot_pages != 0).sum())
     res["bound_ms"], res["bound_by"] = bound(
-        2 * keys * KH * D * isz + 2 * B * T * QH * D * isz
-        + 2 * (B * T + written) * KH * D * isz + B * case.maxp * 4 + 3 * B * T * 4,
+        2 * keys * KH * D * isz + 2 * B * T * QH * D * qsz
+        + 2 * (B * T * qsz + written * isz) * KH * D + B * case.maxp * 4 + 3 * B * T * 4,
         4 * D * pairs)
-    gathered = []
-    for layer in range(L):
-        k = kp[layer][case.page_tables.long()].permute(0, 2, 1, 3, 4).reshape(B, KH, width, D)
-        v = vp[layer][case.page_tables.long()].permute(0, 2, 1, 3, 4).reshape(B, KH, width, D)
-        gathered.append((k.contiguous(), v.contiguous()))
+    gathered = [(case.gather(kp, layer, case.page_tables, 0),
+                 case.gather(vp, layer, case.page_tables, 1)) for layer in range(L)]
     q4 = q.transpose(1, 2).contiguous()
     mask = vis[:, None]
     res["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -633,8 +712,13 @@ def phase_kernels(torch, ops, S, dev):
     case = KernelCase(torch, dev, S)
     mcase = MLACase(torch, dev, S)
     rows = {}
-    for dtype, tol, timed in ((torch.bfloat16, BF16_TOL, True), (torch.float32, F32_TOL, False)):
-        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    modes = ((torch.bfloat16, BF16_TOL, True), (torch.float32, F32_TOL, False),
+             (torch.int8, BF16_TOL, True), (torch.float8_e4m3fn, BF16_TOL, True))
+    for dtype, tol, timed in modes:
+        tag = {torch.bfloat16: "bf16", torch.float32: "f32", torch.int8: "int8",
+               torch.float8_e4m3fn: "fp8"}[dtype]
+        # rows keyed "K1" for bf16, "K1 int8" / "K1 fp8" for the byte modes
+        key = (lambda name: name) if dtype == torch.bfloat16 else (lambda name: f"{name} {tag}")
         for window in (None, S["window"]):
             d = kernel_decode(torch, ops, F, case, dtype, window, timed and window is None)
             p = kernel_prefill(torch, ops, F, case, dtype, window, timed and window is None)
@@ -648,12 +732,17 @@ def phase_kernels(torch, ops, S, dev):
                     + ("ok" if ok else "FAILED"))
                 require(ok, f"{name} {tag} window={window} disagrees: {r}")
                 if timed and window is None:
-                    rows[name] = dict(r, tolerance=tol)
+                    rows[key(name)] = dict(r, tolerance=tol)
         w = kernel_prefill_write(torch, ops, case, dtype, timed)
-        log(f"[kernels] K2 {tag}: pools bit-exact={w['pools_bit_exact']}")
-        require(w["pools_bit_exact"], f"K2 {tag} pool bytes differ")
+        log(f"[kernels] K2 {tag}: pools bit-exact={w['pools_bit_exact']}"
+            + (f", edge values as the reference={w['edge_values_ok']}"
+               if "edge_values_ok" in w else ""))
+        require(w["pools_bit_exact"] and w.get("edge_values_ok", True),
+                f"K2 {tag} pool bytes differ")
         if timed:
-            rows["K2"] = dict(w, tolerance=0.0)
+            rows[key("K2")] = dict(w, tolerance=0.0)
+        if is_byte(torch, dtype):
+            continue  # the MLA kernels take no byte pool yet
         # the MLA kernels at DeepSeek-V2-Lite's widths
         mla = {**mla_decode_verify(torch, ops, F, mcase, dtype, timed),
                **mla_prefill(torch, ops, F, mcase, dtype, timed)}
@@ -675,9 +764,10 @@ def phase_kernels(torch, ops, S, dev):
                     for dt, qr in (("bfloat16", 16), ("bfloat16", 48), ("bfloat16", 32),
                                    ("float32", 16))))
     for name, r in rows.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"[kernels] {name}: {r['ms']:.4f} ms on the device, {r['host_ms']:.4f} ms a "
             f"call from the host (plain {r['plain_ms']:.4f}, library "
-            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']})"
+            f"{lib}, bound {r['bound_ms']:.4f} by {r['bound_by']})"
             + (f"; device ms per call by kernel {json.dumps(r['parts'])}"
                if "parts" in r else ""))
     return rows
@@ -706,13 +796,23 @@ def model_steps(cfg):
     return llama.llama_prefill_step, llama.llama_decode_step, llama.llama_verify_step
 
 
-def last_logits(torch, cfg, params, S, dev, reference):
+def last_logits(torch, cfg, params, S, dev, reference, kv_dtype=None):
     """Last-position logits of a two-chunk prefill (the second chunk at
     q_start = one bucket), of one decode step after it, and of one verify
     step of spec_T fed tokens after that, through the kernels or
     (``reference``) through their plain versions, on fresh pools of the
-    model's dtype (one latent pool for the MLA family)."""
+    model's dtype or ``kv_dtype`` (one latent pool for the MLA family; an
+    int8 pool with the engine's default scales)."""
+    from kvcached_tpu_torch.device.pool import torch_dtype
+    from kvcached_tpu_torch.engine import EngineConfig
+
     prefill_step, decode_step, verify_step = model_steps(cfg)
+    pdt = torch_dtype(kv_dtype or cfg.dtype)
+    kw = {}
+    if pdt == torch.int8:
+        sc = torch.full((cfg.num_layers, cfg.num_kv_heads), EngineConfig.kv_scale,
+                        dtype=torch.float32, device=dev)
+        kw = dict(quant_scales=(sc, sc))
     TP, T, Tv = S["TP"], max(S["buckets"]), S["spec_T"]
     tail = T // 4 + 9
     T2 = next(b for b in S["buckets"] if b >= tail)
@@ -724,7 +824,7 @@ def last_logits(torch, cfg, params, S, dev, reference):
                            dtype=torch.int32)
     table = torch.arange(1, n_pages + 1, dtype=torch.int32, device=dev)
     one = lambda x: torch.tensor([x], dtype=torch.int32, device=dev)  # noqa: E731
-    kp = torch.zeros(shape, dtype=cfg.tdtype, device=dev)
+    kp = torch.zeros(shape, dtype=pdt, device=dev)
     vp = None if getattr(cfg, "num_kv_buffers", 2) == 1 else torch.zeros_like(kp)
     for q0, n, Tb in ((0, T, T), (T, tail, T2)):
         toks = torch.zeros(Tb, dtype=torch.int32, device=dev)
@@ -735,16 +835,16 @@ def last_logits(torch, cfg, params, S, dev, reference):
         chunk[:nreal] = table[q0 // TP: q0 // TP + nreal]
         lg_prefill, _, _ = prefill_step(
             params, cfg, toks, pos, kp, vp, chunk, table, q0, n,
-            reference_attention=reference)
+            reference_attention=reference, **kw)
     lg_decode, _, _ = decode_step(
         params, cfg, prompt[:1], one(plen), kp, vp, table[None],
         one(int(table[plen // TP])), one(plen % TP), one(plen + 1),
-        reference_attention=reference)
+        reference_attention=reference, **kw)
     vpos = plen + 1 + torch.arange(Tv, dtype=torch.int32, device=dev)
     lg_verify, _, _ = verify_step(
         params, cfg, prompt[None, 1:Tv + 1], vpos[None], kp, vp, table[None],
         table[vpos // TP][None].contiguous(), (vpos % TP)[None], one(plen + 1 + Tv),
-        reference_attention=reference)
+        reference_attention=reference, **kw)
     return lg_prefill, lg_decode[0], lg_verify[0, -1]
 
 
@@ -930,7 +1030,7 @@ def _set_limit(name, nbytes):
                    cwd=HERE, env=env, timeout=120)
 
 
-def phase_elastic(torch, cfg, params, S, dev, rehearse, tag="elastic"):
+def phase_elastic(torch, cfg, params, S, dev, rehearse, tag="elastic", kv_dtype=None):
     import numpy as np
 
     from kvcached_tpu_torch.engine import EngineConfig, LLMEngine, SamplingParams
@@ -944,7 +1044,7 @@ def phase_elastic(torch, cfg, params, S, dev, rehearse, tag="elastic"):
         return LLMEngine(cfg, EngineConfig(
             max_batch=8, max_model_len=4 * B0, page_tokens=TP, decode_horizon=8,
             prefill_buckets=(B0,), num_pages=160 if not rehearse else 96,
-            kv_dtype=cfg.dtype, enable_prefix_caching=False, prefill_batch=1,
+            kv_dtype=kv_dtype or cfg.dtype, enable_prefix_caching=False, prefill_batch=1,
             ipc_name=ipc_name), params=params, device=dev)
 
     rng = np.random.default_rng(2)
@@ -1114,6 +1214,122 @@ def phase_spec(torch, ops, cfg, params, S, dev, rehearse):
         require(counts["K4"] > 0, "K4 was never launched on the spec path")
     return counts, {f"{name} {'spec' if spec else 'plain'}": r["decode"]
                     for (name, spec), r in res.items()}
+
+
+# ---------------------------------------------------------------------------
+# 9. byte KV pools (int8, e4m3) at full width
+# ---------------------------------------------------------------------------
+
+
+def phase_byte_pools(torch, ops, cfg, params, S, dev, rehearse):
+    """Llama-3-8B with int8 and with e4m3 pools: (a) the pages one HBM
+    budget holds per pool type; (b) phase 4's request mix on each byte pool
+    (bf16 model), launch counters zeroed just before and read just after,
+    tok/s and the device busy share of one decode dispatch; (c) float32
+    logits kernel path vs plain path on each byte pool; (d) float32 spec
+    decode vs plain decode on each byte pool (greedy tokens identical); (e)
+    GREW/SHRANK/CORRECT on an int8 pool.  Returns (launches by kernel and
+    mode over (b) and (d), tok/s by mode)."""
+    import numpy as np
+
+    from kvcached_tpu_torch.config import KVConfig
+    from kvcached_tpu_torch.device.pool import PoolSpec
+    from kvcached_tpu_torch.engine import EngineConfig, LLMEngine, SamplingParams
+
+    TP, V, new = S["TP"], cfg.vocab_size, S["max_new"]
+    modes = {"int8": "int8", "float8_e4m3fn": "fp8"}
+    kv = lambda dt: KVConfig(  # noqa: E731
+        num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+        block_tokens=TP, page_tokens=TP, kv_dtype=dt)
+    bf16_pages = 320 if not rehearse else 96  # phase 4's pool
+    budget = bf16_pages * kv("bfloat16").page_bytes
+    pages = {dt: PoolSpec.from_config(kv(dt), hbm_budget_bytes=budget).num_pages
+             for dt in ("bfloat16", *modes)}
+    log(f"[byte] one HBM budget of {budget / 2**30:.2f} GiB holds "
+        + ", ".join(f"{dt} {n} pages ({n * TP} tokens)" for dt, n in pages.items()))
+    require(all(pages[dt] == 2 * pages["bfloat16"] for dt in modes),
+            "a byte pool holds twice bf16's pages")
+    counts, tok_s = {}, {}
+    for mode, tag in modes.items():
+        eng = LLMEngine(cfg, EngineConfig(
+            max_batch=8, max_model_len=2048 if not rehearse else 256, page_tokens=TP,
+            decode_horizon=8, prefill_buckets=S["buckets"], num_pages=pages[mode],
+            kv_dtype=mode, prefill_batch=4), params=params, device=dev)
+        rand, greedy, wave1, wave2 = request_mix(S, V, new)
+        _, out1, out2, wall = serve_mix(ops, eng, wave1, wave2)
+        by_dtype = ops.launch_counts_by_dtype()  # the main path's, by pool type
+        m = eng.kv_metrics()
+        prof = None if rehearse else profile_decode(torch, eng, rand, greedy)
+        eng.shutdown()
+        del eng
+        th = m["throughput"]
+        tok_s[tag] = dict(prefill=th["prefill_tokens"] / max(th["prefill_seconds"], 1e-9),
+                          decode=th["decode_tokens"] / max(th["decode_seconds"], 1e-9))
+        for k in ("K1", "K2", "K3"):
+            counts[f"{k} {tag}"] = by_dtype[k].get(mode, 0)
+        outs = out1 + out2
+        log(f"[byte] (b) {mode} pool, {pages[mode]} pages: {len(outs)} requests; wave 2 "
+            f"in {wall:.2f} s: prefill {tok_s[tag]['prefill']:.1f} tok/s, decode "
+            f"{tok_s[tag]['decode']:.1f} tok/s; prefix cache {m['prefix_cache']}; "
+            f"launches by pool type {json.dumps(by_dtype)}")
+        if prof:
+            log(f"[byte] (b) {mode}: one decode dispatch ({prof['rows']} rows x "
+                f"{prof['steps']} steps) under torch.profiler: wall {prof['wall_ms']:.2f} "
+                f"ms, device busy {prof['device_ms']:.2f} ms "
+                f"({100 * prof['device_ms'] / prof['wall_ms']:.1f}%), top kernels "
+                f"{json.dumps(prof['top'])}")
+        require(all(len(o) == new for o in outs), "every request yields max_new tokens")
+        require(all(0 <= t < V for o in outs for t in o), "tokens inside the vocabulary")
+        require(m["prefix_cache"]["hits"] > 0 and m["prefill_batch"]["dispatches"] > 0,
+                "the prefix hit and batched prefill ran")
+        for k in ("K1", "K2", "K3"):
+            if not rehearse:
+                require(counts[f"{k} {tag}"] > 0, f"{k} {tag} was never launched")
+    # (c), (d) at float32: the same weights widened
+    c32, p32 = float32_copy(cfg, params)
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    rng = np.random.default_rng(5)
+    B0 = max(S["buckets"])
+    rand = lambda n: [int(t) for t in rng.integers(0, V, n)]  # noqa: E731
+    rep = lambda n, period: (rand(period) * (n // period + 1))[:n]  # noqa: E731
+    prompts = [rep(B0 // 4, 12), rand(B0 // 3), rep(B0 // 8, 7), rand(B0 // 5)]
+    sp = SamplingParams(max_new_tokens=S["spec_new_exact"])
+    for mode, tag in modes.items():
+        kern = last_logits(torch, c32, p32, S, dev, False, kv_dtype=mode)
+        plain = last_logits(torch, c32, p32, S, dev, True, kv_dtype=mode)
+        rels = {w: rel(a, b) for w, a, b in zip(("prefill", "decode", "verify"), kern, plain)}
+        log(f"[byte] (c) {mode} pool, float32 model: last-position logits kernel path "
+            f"vs plain path, norm-relative {json.dumps(rels)} (tol {LOGITS_REL_TOL})")
+        require(max(rels.values()) <= LOGITS_REL_TOL, f"{mode} logits disagree: {rels}")
+        outs = {}
+        for spec in (False, True):
+            eng = LLMEngine(c32, EngineConfig(
+                max_batch=8, max_model_len=2048 if not rehearse else 256, page_tokens=TP,
+                decode_horizon=8, prefill_buckets=S["buckets"], num_pages=128,
+                kv_dtype=mode, prefill_batch=4, spec_decode=spec), params=p32, device=dev)
+            if spec:
+                ops.reset_launch_counts()  # --- the byte pool's spec path starts here
+            outs[spec] = serve(eng, [(p, sp) for p in prompts])
+            if spec:
+                counts[f"K4 {tag}"] = ops.launch_counts_by_dtype()["K4"].get(mode, 0)
+                m = eng.kv_metrics()["spec"]  # --- and ends here
+            eng.shutdown()
+            del eng
+        same = outs[True] == outs[False]
+        log(f"[byte] (d) {mode} pool, float32 model, {len(prompts)} requests x "
+            f"{S['spec_new_exact']} tokens: spec decode vs plain decode greedy tokens "
+            f"identical: {same}; spec {json.dumps(m)}; K4 {tag} launches "
+            f"{counts[f'K4 {tag}']}")
+        require(same, f"float32 spec decode on the {mode} pool changed greedy tokens")
+        require(m["dispatches"] > 0, "the spec run dispatched no verify")
+        if not rehearse:
+            require(counts[f"K4 {tag}"] > 0, f"K4 {tag} was never launched")
+    del p32
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # (e) the elastic gate on an int8 pool (bf16 model)
+    phase_elastic(torch, cfg, params, S, dev, rehearse, tag="byte (e) int8", kv_dtype="int8")
+    return counts, tok_s
 
 
 # ---------------------------------------------------------------------------
@@ -1326,15 +1542,18 @@ def main(argv) -> int:
     phase_elastic(torch, cfg, params, S, dev, rehearse)
     spec_counts, spec_tok_s = phase_spec(torch, ops, cfg, params, S, dev, rehearse)
     counts["K4"] = spec_counts["K4"]
+    byte_counts, byte_tok_s = phase_byte_pools(torch, ops, cfg, params, S, dev, rehearse)
+    counts.update(byte_counts)
     del params
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     mla_counts, mla_tok_s = phase_mla(torch, ops, S, dev, rehearse)
     counts.update(mla_counts)
     real = phase_real_weights(torch, dev, rehearse)
-    log(f"[done] phases 3-8 in {time.perf_counter() - t0:.1f} s; engine tok/s "
-        f"{json.dumps(tok_s)}; spec decode tok/s {json.dumps(spec_tok_s)}; MLA tok/s "
-        f"{json.dumps(mla_tok_s)}; winadd exact {real['winadd']}; card {smi}")
+    log(f"[done] phases 3-9 in {time.perf_counter() - t0:.1f} s; engine tok/s "
+        f"{json.dumps(tok_s)}; spec decode tok/s {json.dumps(spec_tok_s)}; byte pools "
+        f"tok/s {json.dumps(byte_tok_s)}; MLA tok/s {json.dumps(mla_tok_s)}; winadd exact "
+        f"{real['winadd']}; card {smi}")
     if rehearse:
         log("[done] rehearsal only: no result")
         return 3
@@ -1359,16 +1578,26 @@ def main(argv) -> int:
         "K3m": ("paged_prefill_attention_batch (MLA mode)", "mla_attend.cu",
                 "kvcached_tpu/ops/paged_prefill.py:344"),
     }
+    # the int8 and e4m3 modes of K1-K4: their launches on phase 9's path
+    # (K1r is on no engine path)
+    modes = {"int8": "int8", "fp8": "float8_e4m3fn"}
+    for k in ("K1", "K1r", "K2", "K3", "K4"):
+        for tag, mode in modes.items():
+            fn, src, replaces = meta[k]
+            meta[f"{k} {tag}"] = (f"{fn}, {mode} pool", src, replaces)
+            counts.setdefault(f"{k} {tag}", 0)
     kernels = []
     for k, (fn, src, replaces) in meta.items():
         r = rows[k]
+        tag = k.split()[-1] if " " in k else None
         kernels.append({
-            "name": f"{k} {fn}", "route": "cuda",
+            "name": f"{k.split()[0]} {fn}", "route": "cuda",
             "source": f"kvcached_tpu_torch/csrc/{src}", "replaces": replaces,
             "launches": counts[k], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "host_ms": r["host_ms"], "tolerance": r["tolerance"], "dtype": "bfloat16",
+            "host_ms": r["host_ms"], "tolerance": r["tolerance"],
+            "dtype": modes.get(tag, "bfloat16"),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

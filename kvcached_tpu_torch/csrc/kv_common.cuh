@@ -2,14 +2,20 @@
 // switch of the plain C entry points, and the flash-attention tile steps of
 // K3 and K4 (bf16 on the tensor cores, float32 on the CUDA cores).
 //
-// Pools hold float32 or bfloat16.  A bfloat16 pool is multiplied as bf16
-// operands with float32 accumulation: operands are widened to float32 (a
-// bf16 x bf16 product is exact in float32) and the softmax weights are
-// rounded to bf16 before they multiply V, as the TPU kernels round them
-// for their bf16 matrix unit.
+// Pools hold float32, bfloat16, int8 or float8 e4m3.  A bfloat16 pool is
+// multiplied as bf16 operands with float32 accumulation: operands are
+// widened to float32 (a bf16 x bf16 product is exact in float32) and the
+// softmax weights are rounded to bf16 before they multiply V, as the TPU
+// kernels round them for their bf16 matrix unit.  Byte pools (int8, e4m3)
+// run the same bf16 path on their values widened to bf16 (exact for both),
+// with q in bf16 and a float32 output; the kernels quantize what they
+// write as the reference does (quantize_i8, e4m3_bits) and fold the int8
+// per-(layer, kv head) scales into the scores (K) and the output (V).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -17,7 +23,9 @@
 namespace kvc {
 
 // dtype codes passed by the Python wrappers
-enum DType : int { kF32 = 0, kBF16 = 1 };
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2, kE4M3 = 3 };
+
+using e4m3 = __nv_fp8_e4m3;
 
 template <typename T>
 __device__ __forceinline__ float to_f(T x);
@@ -28,6 +36,13 @@ __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+template <>
+__device__ __forceinline__ float to_f<int8_t>(int8_t x) { return (float)x; }
+template <>
+__device__ __forceinline__ float to_f<e4m3>(e4m3 x) {  // exact
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x.__x, __NV_E4M3)));
+}
+
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
@@ -35,6 +50,87 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even
+}
+
+// The int8 value the reference stores for x: clip(round(x / scale), -127,
+// 127) in float32, an IEEE divide (never the reciprocal: x * (1 / scale)
+// rounds differently) and round half to even; NaN becomes 0, as XLA
+// converts it.  Needs a build without --use_fast_math, which would make
+// the divide approximate.
+__device__ __forceinline__ int8_t quantize_i8(float x, float scale) {
+  const float r = rintf(__fdiv_rn(x, scale));
+  if (r != r) return 0;
+  return (int8_t)fminf(fmaxf(r, -127.f), 127.f);
+}
+
+// The e4m3 bits the reference stores for x: round to nearest even WITHOUT
+// saturation, as its float32 -> float8_e4m3fn conversion does.  Past 464
+// (which ties to 448) and for inf or NaN that is NaN, with x's sign;
+// below, the hardware's saturating conversion gives the same bits.
+__device__ __forceinline__ uint8_t e4m3_bits(float x) {
+  if (!(fabsf(x) <= 464.f)) return signbit(x) ? 0xFF : 0x7F;
+  return __nv_cvt_float_to_fp8(x, __NV_SATFINITE, __NV_E4M3);
+}
+
+// The value a pool of type P stores for x (`scale`: the int8 scale of the
+// row's layer and kv head; other types ignore it)
+template <typename P>
+__device__ __forceinline__ P store_f(float x, float scale);
+template <>
+__device__ __forceinline__ float store_f<float>(float x, float) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 store_f<__nv_bfloat16>(float x, float) {
+  return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ int8_t store_f<int8_t>(float x, float scale) {
+  return quantize_i8(x, scale);
+}
+template <>
+__device__ __forceinline__ e4m3 store_f<e4m3>(float x, float) {
+  e4m3 r;
+  r.__x = e4m3_bits(x);
+  return r;
+}
+
+// The kernels' types around a pool of P: q (Q), the output (Out), the
+// written tokens (New) and the matmul operands (Op).  float32 and bf16
+// pools use their own type throughout; byte pools take bf16 q, float32
+// tokens (quantized in the kernel) and give a float32 output.
+template <typename P>
+struct Types {
+  using Q = P;
+  using Out = P;
+  using New = P;
+  using Op = P;
+};
+template <>
+struct Types<int8_t> {
+  using Q = __nv_bfloat16;
+  using Out = float;
+  using New = float;
+  using Op = __nv_bfloat16;
+};
+template <>
+struct Types<e4m3> : Types<int8_t> {};
+
+// value `i` (0..3) of a 32-bit word of byte-pool values, as float
+template <typename P>
+__device__ __forceinline__ float byte_f(uint32_t w, int i);
+template <>
+__device__ __forceinline__ float byte_f<int8_t>(uint32_t w, int i) {
+  return (float)((int)(w << (24 - 8 * i)) >> 24);  // sign-extend byte i
+}
+template <>
+__device__ __forceinline__ float byte_f<e4m3>(uint32_t w, int i) {
+  const __nv_fp8_storage_t b = (__nv_fp8_storage_t)((w >> (8 * i)) & 0xFFu);
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(b, __NV_E4M3)));
+}
+
+// int8 scale of (layer, kv head h), 1 without scales (other pools)
+__device__ __forceinline__ float head_scale(const float* scales, int layer,
+                                            int KH, int h) {
+  return scales ? scales[layer * KH + h] : 1.f;
 }
 
 // value of x after a round trip through the operand type T
@@ -59,6 +155,18 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 8 byte-pool values (one 64-bit word) widened to 8 bf16 (one 16-byte
+// vector): int8 and e4m3 values are exact in bf16
+template <typename P>
+__device__ __forceinline__ uint4 widen8(uint2 v) {
+  uint4 r;
+  r.x = pack_bf16(byte_f<P>(v.x, 0), byte_f<P>(v.x, 1));
+  r.y = pack_bf16(byte_f<P>(v.x, 2), byte_f<P>(v.x, 3));
+  r.z = pack_bf16(byte_f<P>(v.y, 0), byte_f<P>(v.y, 1));
+  r.w = pack_bf16(byte_f<P>(v.y, 2), byte_f<P>(v.y, 3));
+  return r;
 }
 
 // two bf16 values from two addresses, packed (lo in the low half)
@@ -101,14 +209,16 @@ constexpr int kF32Rows = 64;   // query rows per float32 block
 // memory, k_s / v_s (rows past nk zero); taking them as arrays of a known
 // row length, not as pointers, keeps K3 at its own code's speed (a pointer
 // interface cost it 8% and 32 registers).  Query row i sees a key <=
-// qpos[i], and > qpos[i] - window with a window; the softmax weights are
-// rounded to bf16 before they multiply V.
+// qpos[i], and > qpos[i] - window with a window; a score is (q . k) *
+// sm_scale * k_scale (k_scale: an int8 pool's K scale, else 1); the softmax
+// weights are rounded to bf16 before they multiply V.
 template <int LD>
 __device__ __forceinline__ void mma_attend_tile(
     const uint32_t (&qa)[kHeadDim / 16][4], const bool (&live)[2],
     const int (&qpos)[2], const __nv_bfloat16 (&k_s)[kMmaKeys][LD],
     const __nv_bfloat16 (&v_s)[kMmaKeys][LD], int t0, int nk, int window,
-    float sm_scale, float (&o)[kHeadDim / 8][4], float (&m)[2], float (&l)[2]) {
+    float sm_scale, float k_scale, float (&o)[kHeadDim / 8][4], float (&m)[2],
+    float (&l)[2]) {
   const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
   // S = Q K^T: 8 column tiles of 8 keys
   float s[kMmaKeys / 8][4];
@@ -132,7 +242,7 @@ __device__ __forceinline__ void mma_attend_tile(
       const int key = t0 + nt * 8 + 2 * tq + (e % 2);
       const bool ok = live[i] && key < t0 + nk && key <= qpos[i] &&
                       (window <= 0 || key > qpos[i] - window);
-      s[nt][e] = ok ? s[nt][e] * sm_scale : -INFINITY;
+      s[nt][e] = ok ? s[nt][e] * sm_scale * k_scale : -INFINITY;
       mx[i] = fmaxf(mx[i], s[nt][e]);
     }
   }

@@ -11,7 +11,11 @@
 //   - scores are (q . k) * sm_scale in float32, online softmax in float32;
 //   - a row with no tokens yields zeros;
 //   - page-table entries past the row's last page are never read (the
-//     loops stop at seq_len instead of clamping the index).
+//     loops stop at seq_len instead of clamping the index);
+//   - byte pools (int8, e4m3): the token is quantized on write as the
+//     reference does (kv_common.cuh store_f), q and the softmax weights are
+//     rounded to bf16 operands, an int8 pool's K scale multiplies the
+//     scores after sm_scale and its V scale the output.
 //
 // What bounds it on an H100: device-memory bytes.  Each (row, kv head)
 // reads its seq_len x D keys and values once; the FLOPs per byte are ~G,
@@ -45,6 +49,18 @@ constexpr int SPLIT = 256;        // tokens per block (ops/paged_attention.py)
 template <typename T>
 __device__ __forceinline__ void load4(const T* p, float (&x)[EPL]);
 template <>
+__device__ __forceinline__ void load4<int8_t>(const int8_t* p, float (&x)[EPL]) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+  for (int i = 0; i < EPL; ++i) x[i] = kvc::byte_f<int8_t>(w, i);
+}
+template <>
+__device__ __forceinline__ void load4<kvc::e4m3>(const kvc::e4m3* p, float (&x)[EPL]) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+  for (int i = 0; i < EPL; ++i) x[i] = kvc::byte_f<kvc::e4m3>(w, i);
+}
+template <>
 __device__ __forceinline__ void load4<float>(const float* p, float (&x)[EPL]) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
@@ -64,23 +80,30 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Pass 1.  GT >= G is the compile-time bound of the GQA group.
+// Pass 1.  T is the pool's type (kv_common.cuh Types gives q's, the
+// tokens' and the operands'); GT >= G is the compile-time bound of the GQA
+// group.
 template <typename T, int GT>
 __global__ void __launch_bounds__(THREADS) decode_split_kernel(
-    const T* __restrict__ q,             // [B, KH*G, D]
-    T* k_pool, T* v_pool,                // [L, P, KH, TP, D]
-    const int* __restrict__ page_tables, // [B, maxp]
-    const int* __restrict__ seq_lens,    // [B]
-    const T* __restrict__ k_new,         // [B, KH, D]
-    const T* __restrict__ v_new,
-    const int* __restrict__ slot_pages,  // [B]
+    const typename kvc::Types<T>::Q* __restrict__ q,      // [B, KH*G, D]
+    T* k_pool, T* v_pool,                                 // [L, P, KH, TP, D]
+    const int* __restrict__ page_tables,                  // [B, maxp]
+    const int* __restrict__ seq_lens,                     // [B]
+    const typename kvc::Types<T>::New* __restrict__ k_new,  // [B, KH, D]
+    const typename kvc::Types<T>::New* __restrict__ v_new,
+    const int* __restrict__ slot_pages,                   // [B]
     const int* __restrict__ slot_offsets,
-    float* __restrict__ part_m,          // [B, KH, S, GT]
+    const float* __restrict__ k_scales,                   // [L, KH] int8, else null
+    const float* __restrict__ v_scales,
+    float* __restrict__ part_m,                           // [B, KH, S, GT]
     float* __restrict__ part_l,
-    float* __restrict__ part_acc,        // [B, KH, S, GT, D]
+    float* __restrict__ part_acc,                         // [B, KH, S, GT, D]
     int layer, int num_pages, int KH, int G, int TP, int maxp, int window,
     float sm_scale, int write_kv) {
   using namespace kvc;
+  using Q = typename Types<T>::Q;
+  using New = typename Types<T>::New;
+  using Op = typename Types<T>::Op;
   __shared__ float m_w[WARPS][GT], l_w[WARPS][GT];
   __shared__ float acc_w[WARPS][GT][D];
 
@@ -90,24 +113,34 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
   const int e0 = lane * EPL;
   const size_t page_stride = (size_t)KH * TP * D;
   const size_t base = (size_t)layer * num_pages * page_stride + (size_t)h * TP * D;
+  const float ksc = head_scale(k_scales, layer, KH, h);
 
-  // the current token: split 0 stores it, every split keeps it to use in
-  // place of the slot's memory
+  // the current token: split 0 stores it, every split keeps the stored
+  // value to use in place of the slot's memory
   int slot_page = -1, slot_off = -1;
   float kn[EPL] = {0.f, 0.f, 0.f, 0.f}, vn[EPL] = {0.f, 0.f, 0.f, 0.f};
   if (write_kv && slot_pages[b] != 0) {
     slot_page = slot_pages[b];
     slot_off = slot_offsets[b];
     const size_t src = ((size_t)b * KH + h) * D + e0;
-    load4<T>(k_new + src, kn);
-    load4<T>(v_new + src, vn);
+    load4<New>(k_new + src, kn);
+    load4<New>(v_new + src, vn);
+    T ks[EPL], vs[EPL];
+    const float vsc = head_scale(v_scales, layer, KH, h);
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) {
+      ks[i] = store_f<T>(kn[i], ksc);
+      vs[i] = store_f<T>(vn[i], vsc);
+      kn[i] = to_f<T>(ks[i]);
+      vn[i] = to_f<T>(vs[i]);
+    }
     if (split == 0 && warp == 0) {
       const size_t dst = base + (size_t)slot_page * page_stride +
                          (size_t)slot_off * D + e0;
 #pragma unroll
       for (int i = 0; i < EPL; ++i) {
-        k_pool[dst + i] = k_new[src + i];
-        v_pool[dst + i] = v_new[src + i];
+        k_pool[dst + i] = ks[i];
+        v_pool[dst + i] = vs[i];
       }
     }
   }
@@ -115,7 +148,7 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
   float qv[GT][EPL];
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
-    if (g < G) load4<T>(q + (((size_t)b * KH + h) * G + g) * D + e0, qv[g]);
+    if (g < G) load4<Q>(q + (((size_t)b * KH + h) * G + g) * D + e0, qv[g]);
   }
   float m[GT], l[GT], acc[GT][EPL];
 #pragma unroll
@@ -160,7 +193,7 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
 #pragma unroll
           for (int i = 0; i < EPL; ++i) dot = fmaf(qv[g][i], kx[u][i], dot);
           dot = warp_sum(dot);
-          s[u] = t0 + u < hi ? dot * sm_scale : -INFINITY;
+          s[u] = t0 + u < hi ? dot * sm_scale * ksc : -INFINITY;
           mt = fmaxf(mt, s[u]);
         }
         const float m_new = fmaxf(m[g], mt);  // finite: t0 < hi
@@ -172,7 +205,7 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
         for (int u = 0; u < U; ++u) {
           const float p = t0 + u < hi ? expf(s[u] - m_new) : 0.f;
           psum += p;
-          const float pr = round_op<T>(p);
+          const float pr = round_op<Op>(p);
 #pragma unroll
           for (int i = 0; i < EPL; ++i) acc[g][i] = fmaf(pr, vx[u][i], acc[g][i]);
         }
@@ -213,14 +246,17 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
   }
 }
 
-// Pass 2: merge the splits of one (row, kv head).
+// Pass 2: merge the splits of one (row, kv head); an int8 pool's V scale
+// multiplies the merged output.
 template <typename T, int GT>
 __global__ void __launch_bounds__(D) decode_merge_kernel(
     const float* __restrict__ part_m, const float* __restrict__ part_l,
-    const float* __restrict__ part_acc, T* __restrict__ out, int KH, int G,
+    const float* __restrict__ part_acc, const float* __restrict__ v_scales,
+    typename kvc::Types<T>::Out* __restrict__ out, int layer, int KH, int G,
     int S) {
   using namespace kvc;
   const int b = blockIdx.x, h = blockIdx.y, d = threadIdx.x;
+  const float vsc = head_scale(v_scales, layer, KH, h);
   const size_t prow = ((size_t)b * KH + h) * S * GT;
   for (int g = 0; g < G; ++g) {
     float M = -INFINITY;
@@ -233,30 +269,33 @@ __global__ void __launch_bounds__(D) decode_merge_kernel(
       A += part_acc[(prow + s * GT + g) * D + d] * wt;
     }
     out[(((size_t)b * KH + h) * G + g) * D + d] =
-        from_f<T>(A / (Lsum == 0.f ? 1.f : Lsum));
+        from_f<typename Types<T>::Out>(A * vsc / (Lsum == 0.f ? 1.f : Lsum));
   }
 }
 
 template <typename T, int GT>
 int launch(const void* q, void* k_pool, void* v_pool, const void* page_tables,
            const void* seq_lens, const void* k_new, const void* v_new,
-           const void* slot_pages, const void* slot_offsets, void* out,
+           const void* slot_pages, const void* slot_offsets,
+           const float* k_scales, const float* v_scales, void* out,
            void* scratch, int B, int layer, int num_pages, int KH, int G,
            int TP, int maxp, int window, float sm_scale, int write_kv,
            cudaStream_t stream) {
+  using Ty = kvc::Types<T>;
   const int S = (maxp * TP + SPLIT - 1) / SPLIT;
   float* part_m = (float*)scratch;
   float* part_l = part_m + (size_t)B * KH * S * GT;
   float* part_acc = part_l + (size_t)B * KH * S * GT;
   decode_split_kernel<T, GT><<<dim3(B, KH, S), THREADS, 0, stream>>>(
-      (const T*)q, (T*)k_pool, (T*)v_pool, (const int*)page_tables,
-      (const int*)seq_lens, (const T*)k_new, (const T*)v_new,
-      (const int*)slot_pages, (const int*)slot_offsets, part_m, part_l,
-      part_acc, layer, num_pages, KH, G, TP, maxp, window, sm_scale, write_kv);
+      (const typename Ty::Q*)q, (T*)k_pool, (T*)v_pool, (const int*)page_tables,
+      (const int*)seq_lens, (const typename Ty::New*)k_new,
+      (const typename Ty::New*)v_new, (const int*)slot_pages,
+      (const int*)slot_offsets, k_scales, v_scales, part_m, part_l, part_acc,
+      layer, num_pages, KH, G, TP, maxp, window, sm_scale, write_kv);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   decode_merge_kernel<T, GT><<<dim3(B, KH), D, 0, stream>>>(
-      part_m, part_l, part_acc, (T*)out, KH, G, S);
+      part_m, part_l, part_acc, v_scales, (typename Ty::Out*)out, layer, KH, G, S);
   return (int)cudaGetLastError();
 }
 
@@ -264,14 +303,15 @@ template <typename T>
 int dispatch(int G, const void* q, void* k_pool, void* v_pool,
              const void* page_tables, const void* seq_lens, const void* k_new,
              const void* v_new, const void* slot_pages,
-             const void* slot_offsets, void* out, void* scratch, int B,
+             const void* slot_offsets, const float* k_scales,
+             const float* v_scales, void* out, void* scratch, int B,
              int layer, int num_pages, int KH, int TP, int maxp, int window,
              float sm_scale, int write_kv, cudaStream_t s) {
 #define KVC_DECODE(GT)                                                      \
   return launch<T, GT>(q, k_pool, v_pool, page_tables, seq_lens, k_new,     \
-                       v_new, slot_pages, slot_offsets, out, scratch, B,    \
-                       layer, num_pages, KH, G, TP, maxp, window, sm_scale, \
-                       write_kv, s)
+                       v_new, slot_pages, slot_offsets, k_scales, v_scales, \
+                       out, scratch, B, layer, num_pages, KH, G, TP, maxp,  \
+                       window, sm_scale, write_kv, s)
   if (G <= 4) KVC_DECODE(4);
   if (G <= 8) KVC_DECODE(8);
   KVC_DECODE(16);
@@ -281,26 +321,31 @@ int dispatch(int G, const void* q, void* k_pool, void* v_pool,
 }  // namespace
 
 // scratch: B * KH * S * GT * (D + 2) floats, S = ceil(maxp * TP / 256),
-// GT = 4, 8 or 16 (the smallest >= G); the wrapper allocates it.
+// GT = 4, 8 or 16 (the smallest >= G); the wrapper allocates it.  q, the
+// tokens and out are in the pool's type for float32 and bf16 pools; for
+// int8 and e4m3 pools q is bf16, the tokens and out float32.  k_scales /
+// v_scales: an int8 pool's [L, KH] float32 scales (null: 1).
 extern "C" int kvc_paged_decode(
     int dtype, const void* q, void* k_pool, void* v_pool,
     const void* page_tables, const void* seq_lens, const void* k_new,
     const void* v_new, const void* slot_pages, const void* slot_offsets,
-    void* out, void* scratch, int B, int layer, int num_pages, int KH, int G,
-    int TP, int maxp, int window, float sm_scale, int write_kv, void* stream) {
+    const float* k_scales, const float* v_scales, void* out, void* scratch,
+    int B, int layer, int num_pages, int KH, int G, int TP, int maxp,
+    int window, float sm_scale, int write_kv, void* stream) {
   if (G < 1 || G > 16) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kvc::kF32)
-    return dispatch<float>(G, q, k_pool, v_pool, page_tables, seq_lens, k_new,
-                           v_new, slot_pages, slot_offsets, out, scratch, B,
-                           layer, num_pages, KH, TP, maxp, window, sm_scale,
-                           write_kv, s);
-  if (dtype == kvc::kBF16)
-    return dispatch<__nv_bfloat16>(G, q, k_pool, v_pool, page_tables,
-                                   seq_lens, k_new, v_new, slot_pages,
-                                   slot_offsets, out, scratch, B, layer,
-                                   num_pages, KH, TP, maxp, window, sm_scale,
-                                   write_kv, s);
+#define KVC_DTYPE(T)                                                          \
+  return dispatch<T>(G, q, k_pool, v_pool, page_tables, seq_lens, k_new,      \
+                     v_new, slot_pages, slot_offsets, k_scales, v_scales, out, \
+                     scratch, B, layer, num_pages, KH, TP, maxp, window,       \
+                     sm_scale, write_kv, s)
+  switch (dtype) {
+    case kvc::kF32: KVC_DTYPE(float);
+    case kvc::kBF16: KVC_DTYPE(__nv_bfloat16);
+    case kvc::kI8: KVC_DTYPE(int8_t);
+    case kvc::kE4M3: KVC_DTYPE(kvc::e4m3);
+  }
+#undef KVC_DTYPE
   return (int)cudaErrorInvalidValue;
 }

@@ -11,6 +11,9 @@
 //   - scores (q . k) * sm_scale in float32, online softmax in float32; a
 //     bfloat16 pool multiplies bf16 operands (q, k, the softmax weights, v)
 //     with float32 accumulation, a float32 pool multiplies in float32;
+//   - byte pools (int8, e4m3) run the bf16 path on their values widened to
+//     bf16 (exact), with bf16 q and a float32 output; an int8 pool's K
+//     scale multiplies the scores after sm_scale, its V scale the output;
 //   - a query row that sees no key (kv_len == 0 rows) yields zeros;
 //   - rows are independent and the tiling depends on T only, so a batch
 //     is bit-identical to N serial calls.
@@ -22,7 +25,7 @@
 // ones.  Both kernels take one block per (row, kv head, ROWS query rows)
 // and stop at the block's causal limit: key tiles wholly beyond the last
 // query position of the block are never loaded.
-//   - bfloat16 pools (the serving path): 4 warps, 16 query rows each, run
+//   - bfloat16 and byte pools (the serving path): 4 warps, 16 query rows each, run
 //     Q.K^T and P.V on the tensor cores with mma.sync m16n8k16 (bf16 in,
 //     float32 accumulate), FlashAttention-2 style: Q stays in registers as
 //     A fragments, each 64-key tile of K and V is staged in shared memory
@@ -126,19 +129,34 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
 }
 
 
-// ---- bfloat16: tensor cores (mma.sync m16n8k16) ---------------------------
+// ---- bfloat16 and byte pools: tensor cores (mma.sync m16n8k16) -----------
 
 constexpr int MMA_KT = kMmaKeys;    // keys per tile
 constexpr int MMA_LD = D + 8;       // padded smem row (bf16 elements)
 
+// 8 consecutive pool values at p as 8 bf16 (one 16-byte vector)
+template <typename P>
+__device__ __forceinline__ uint4 load8_bf16(const P* p) {
+  if constexpr (sizeof(P) == 2) {
+    return *reinterpret_cast<const uint4*>(p);
+  } else {
+    return widen8<P>(*reinterpret_cast<const uint2*>(p));
+  }
+}
+
+// P: the pool's type (bf16, int8 or e4m3); q is bf16, the output
+// Types<P>::Out (bf16, or float32 for byte pools).
+template <typename P>
 __global__ void __launch_bounds__(THREADS) paged_prefill_mma_kernel(
     const __nv_bfloat16* __restrict__ q,       // [N, Tq, KH*G, D]
-    const __nv_bfloat16* __restrict__ k_pool,  // [L, P, KH, TP, D]
-    const __nv_bfloat16* __restrict__ v_pool,
+    const P* __restrict__ k_pool,              // [L, P, KH, TP, D]
+    const P* __restrict__ v_pool,
     const int* __restrict__ page_tables,       // [N, maxp]
     const int* __restrict__ q_starts,          // [N]
     const int* __restrict__ kv_lens,           // [N]
-    __nv_bfloat16* __restrict__ out,           // [N, Tq, KH*G, D]
+    const float* __restrict__ k_scales,        // [L, KH] int8, else null
+    const float* __restrict__ v_scales,
+    typename Types<P>::Out* __restrict__ out,  // [N, Tq, KH*G, D]
     int layer, int num_pages, int KH, int G, int TP, int maxp, int Tq,
     int window, float sm_scale) {
   __shared__ __align__(16) __nv_bfloat16 k_s[MMA_KT][MMA_LD];
@@ -192,6 +210,8 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_mma_kernel(
   const int qpos_lo = q_start + t_begin;
   const int kv_hi = min(kv_len, q_start + t_begin + n_tok);  // block-causal limit
   const int kv_lo = window > 0 ? max(qpos_lo - window + 1, 0) : 0;
+  const float ksc = head_scale(k_scales, layer, KH, h);
+  const float vsc = head_scale(v_scales, layer, KH, h);
 
   for (int t0 = kv_lo; t0 < kv_hi; t0 += MMA_KT) {
     const int nk = min(MMA_KT, kv_hi - t0);
@@ -204,8 +224,8 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_mma_kernel(
         const int pi = min(pos / TP, maxp - 1);
         const size_t src = base + (size_t)row_pages[pi] * page_stride +
                            (size_t)(pos % TP) * D + c;
-        kv4 = *reinterpret_cast<const uint4*>(k_pool + src);
-        vv4 = *reinterpret_cast<const uint4*>(v_pool + src);
+        kv4 = load8_bf16(k_pool + src);
+        vv4 = load8_bf16(v_pool + src);
       }
       *reinterpret_cast<uint4*>(&k_s[kr][c]) = kv4;
       *reinterpret_cast<uint4*>(&v_s[kr][c]) = vv4;
@@ -213,7 +233,7 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_mma_kernel(
     __syncthreads();
     // keys below kv_hi <= kv_len: the tile step's causal and window mask
     // is the whole mask
-    mma_attend_tile(qa, live, qpos, k_s, v_s, t0, nk, window, sm_scale, o, m, l);
+    mma_attend_tile(qa, live, qpos, k_s, v_s, t0, nk, window, sm_scale, ksc, o, m, l);
   }
 
 #pragma unroll
@@ -221,15 +241,23 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_mma_kernel(
     float li = l[i];
     li += __shfl_xor_sync(0xffffffffu, li, 1);
     li += __shfl_xor_sync(0xffffffffu, li, 2);
-    const float inv = 1.f / (li == 0.f ? 1.f : li);
     if (!live[i]) continue;
     const int r = 16 * warp + gq + 8 * i;
-    __nv_bfloat16* orow =
-        out + (((size_t)n * Tq + t_begin + r / G) * QH + h * G + r % G) * D;
+    auto* orow = out + (((size_t)n * Tq + t_begin + r / G) * QH + h * G + r % G) * D;
+    if constexpr (sizeof(P) == 2) {
+      const float inv = 1.f / (li == 0.f ? 1.f : li);
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      *reinterpret_cast<uint32_t*>(orow + dn * 8 + 2 * tq) =
-          pack_bf16(o[dn][2 * i] * inv, o[dn][2 * i + 1] * inv);
+      for (int dn = 0; dn < D / 8; ++dn) {
+        *reinterpret_cast<uint32_t*>(orow + dn * 8 + 2 * tq) =
+            pack_bf16(o[dn][2 * i] * inv, o[dn][2 * i + 1] * inv);
+      }
+    } else {
+      const float den = li == 0.f ? 1.f : li;
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+        *reinterpret_cast<float2*>(orow + dn * 8 + 2 * tq) =
+            make_float2(o[dn][2 * i] * vsc / den, o[dn][2 * i + 1] * vsc / den);
+      }
     }
   }
 }
@@ -256,28 +284,34 @@ int launch_f32(const void* q, const void* k_pool, const void* v_pool,
   return (int)cudaGetLastError();
 }
 
-int launch_bf16(const void* q, const void* k_pool, const void* v_pool,
-                const void* page_tables, const void* q_starts,
-                const void* kv_lens, void* out, int N, int layer,
-                int num_pages, int KH, int G, int TP, int maxp, int Tq,
-                int window, float sm_scale, cudaStream_t stream) {
+template <typename P>
+int launch_mma(const void* q, const void* k_pool, const void* v_pool,
+               const void* page_tables, const void* q_starts,
+               const void* kv_lens, const float* k_scales,
+               const float* v_scales, void* out, int N, int layer,
+               int num_pages, int KH, int G, int TP, int maxp, int Tq,
+               int window, float sm_scale, cudaStream_t stream) {
   const int QT = ROWS / G;
   dim3 grid(N, KH, (Tq + QT - 1) / QT);
-  paged_prefill_mma_kernel<<<grid, THREADS, 0, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pool,
-      (const __nv_bfloat16*)v_pool, (const int*)page_tables,
-      (const int*)q_starts, (const int*)kv_lens, (__nv_bfloat16*)out, layer,
-      num_pages, KH, G, TP, maxp, Tq, window, sm_scale);
+  paged_prefill_mma_kernel<P><<<grid, THREADS, 0, stream>>>(
+      (const __nv_bfloat16*)q, (const P*)k_pool, (const P*)v_pool,
+      (const int*)page_tables, (const int*)q_starts, (const int*)kv_lens,
+      k_scales, v_scales, (typename Types<P>::Out*)out, layer, num_pages, KH,
+      G, TP, maxp, Tq, window, sm_scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// q is in the pool's type for float32 and bf16 pools and bf16 for int8 and
+// e4m3 pools, whose output is float32; k_scales / v_scales: an int8 pool's
+// [L, KH] float32 scales (null: 1).
 extern "C" int kvc_paged_prefill(
     int dtype, const void* q, const void* k_pool, const void* v_pool,
     const void* page_tables, const void* q_starts, const void* kv_lens,
-    void* out, int N, int layer, int num_pages, int KH, int G, int TP,
-    int maxp, int Tq, int window, float sm_scale, void* stream) {
+    const float* k_scales, const float* v_scales, void* out, int N,
+    int layer, int num_pages, int KH, int G, int TP, int maxp, int Tq,
+    int window, float sm_scale, void* stream) {
   if (G < 1 || ROWS % G) return (int)cudaErrorInvalidValue;
   if (N == 0 || Tq == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
@@ -285,9 +319,15 @@ extern "C" int kvc_paged_prefill(
     return launch_f32(q, k_pool, v_pool, page_tables, q_starts, kv_lens, out,
                       N, layer, num_pages, KH, G, TP, maxp, Tq, window,
                       sm_scale, s);
-  if (dtype == kvc::kBF16)
-    return launch_bf16(q, k_pool, v_pool, page_tables, q_starts, kv_lens, out,
-                       N, layer, num_pages, KH, G, TP, maxp, Tq, window,
-                       sm_scale, s);
+#define KVC_MMA(P)                                                          \
+  return launch_mma<P>(q, k_pool, v_pool, page_tables, q_starts, kv_lens,   \
+                       k_scales, v_scales, out, N, layer, num_pages, KH, G, \
+                       TP, maxp, Tq, window, sm_scale, s)
+  switch (dtype) {
+    case kvc::kBF16: KVC_MMA(__nv_bfloat16);
+    case kvc::kI8: KVC_MMA(int8_t);
+    case kvc::kE4M3: KVC_MMA(kvc::e4m3);
+  }
+#undef KVC_MMA
   return (int)cudaErrorInvalidValue;
 }

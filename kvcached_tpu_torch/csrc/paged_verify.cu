@@ -13,6 +13,11 @@
 //   - scores (q . k) * sm_scale in float32, online softmax in float32; a
 //     bfloat16 pool multiplies bf16 operands (q, k, the softmax weights, v)
 //     with float32 accumulation, a float32 pool multiplies in float32;
+//   - byte pools (int8, e4m3): the fed tokens are quantized on write as
+//     the reference does (kv_common.cuh store_f); the bf16 path runs on
+//     their values widened to bf16 (exact), with bf16 q and a float32
+//     output; an int8 pool's K scale multiplies the scores after sm_scale,
+//     its V scale the merged output;
 //   - a query row that sees no key yields zeros;
 //   - the key range is clamped to the page-table width: the engine passes
 //     honest seq_lens that overhang a row's table by up to T - 1 (those
@@ -69,40 +74,57 @@ __device__ __forceinline__ void split_range(int s_len, int Tq, int TP, int maxp,
   hi = min(min(s_len, maxp * TP), (split + 1) * SPLIT);
 }
 
-// Pass 0: store the fed tokens.  One block per (row, fed token).
+// Pass 0: store the fed tokens.  One block per (row, fed token).  float32
+// and bf16 pools copy 16-byte vectors; byte pools quantize float32 tokens
+// one value a thread, as the reference writes them.
 template <typename T>
 __global__ void __launch_bounds__(THREADS) verify_write_kernel(
-    const T* __restrict__ k_new,          // [B*Tq, KH, D]
-    const T* __restrict__ v_new,
+    const typename Types<T>::New* __restrict__ k_new,  // [B*Tq, KH, D]
+    const typename Types<T>::New* __restrict__ v_new,
     T* __restrict__ k_pool,               // [L, P, KH, TP, D]
     T* __restrict__ v_pool,
     const int* __restrict__ slot_pages,   // [B*Tq]
     const int* __restrict__ slot_offsets,
+    const float* __restrict__ k_scales,   // [L, KH] int8, else null
+    const float* __restrict__ v_scales,
     int layer, int num_pages, int KH, int TP) {
   const int bt = blockIdx.x;
   const int page = slot_pages[bt];
   if (page == 0) return;  // the zero page: discard
   const int off = slot_offsets[bt];
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte vector
-  constexpr int PER_HEAD = D / VEC;
   const size_t page_stride = (size_t)KH * TP * D;
   const size_t dst0 =
       ((size_t)layer * num_pages + page) * page_stride + (size_t)off * D;
-  for (int i = threadIdx.x; i < KH * PER_HEAD; i += THREADS) {
-    const int h = i / PER_HEAD, c = (i % PER_HEAD) * VEC;
-    const size_t src = ((size_t)bt * KH + h) * D + c;
-    const size_t dst = dst0 + (size_t)h * TP * D + c;
-    *reinterpret_cast<uint4*>(k_pool + dst) = *reinterpret_cast<const uint4*>(k_new + src);
-    *reinterpret_cast<uint4*>(v_pool + dst) = *reinterpret_cast<const uint4*>(v_new + src);
+  if constexpr (sizeof(T) == 1) {
+    for (int i = threadIdx.x; i < KH * D; i += THREADS) {
+      const int h = i / D, c = i % D;
+      const size_t src = ((size_t)bt * KH + h) * D + c;
+      const size_t dst = dst0 + (size_t)h * TP * D + c;
+      k_pool[dst] = store_f<T>(k_new[src], head_scale(k_scales, layer, KH, h));
+      v_pool[dst] = store_f<T>(v_new[src], head_scale(v_scales, layer, KH, h));
+    }
+  } else {
+    constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte vector
+    constexpr int PER_HEAD = D / VEC;
+    for (int i = threadIdx.x; i < KH * PER_HEAD; i += THREADS) {
+      const int h = i / PER_HEAD, c = (i % PER_HEAD) * VEC;
+      const size_t src = ((size_t)bt * KH + h) * D + c;
+      const size_t dst = dst0 + (size_t)h * TP * D + c;
+      *reinterpret_cast<uint4*>(k_pool + dst) = *reinterpret_cast<const uint4*>(k_new + src);
+      *reinterpret_cast<uint4*>(v_pool + dst) = *reinterpret_cast<const uint4*>(v_new + src);
+    }
   }
 }
 
 // Start copying one 64-key tile of K and V into (k_s, v_s), all of this
 // thread's 2 * LOADS 16-byte copies in flight at once, as one copy group;
 // rows past nk are zeroed (their weights are 0, and 0 * NaN would not be).
+// A byte pool's values are widened to bf16 on the way (8 bytes loaded, 16
+// stored), which cp.async cannot do: its tile lands before the call returns.
+template <typename P>
 __device__ __forceinline__ void copy_tile(__nv_bfloat16* k_s, __nv_bfloat16* v_s,
-                                          const __nv_bfloat16* __restrict__ k_pool,
-                                          const __nv_bfloat16* __restrict__ v_pool,
+                                          const P* __restrict__ k_pool,
+                                          const P* __restrict__ v_pool,
                                           const int* __restrict__ row_pages,
                                           size_t kbase, size_t page_stride, int TP,
                                           int t0, int nk, int tid) {
@@ -116,8 +138,15 @@ __device__ __forceinline__ void copy_tile(__nv_bfloat16* k_s, __nv_bfloat16* v_s
       const int pos = t0 + kr;
       const size_t src = kbase + (size_t)row_pages[pos / TP] * page_stride +
                          (size_t)(pos % TP) * D + c;
-      cp_async16(kd, k_pool + src);
-      cp_async16(vd, v_pool + src);
+      if constexpr (sizeof(P) == 2) {
+        cp_async16(kd, k_pool + src);
+        cp_async16(vd, v_pool + src);
+      } else {
+        *reinterpret_cast<uint4*>(kd) =
+            widen8<P>(*reinterpret_cast<const uint2*>(k_pool + src));
+        *reinterpret_cast<uint4*>(vd) =
+            widen8<P>(*reinterpret_cast<const uint2*>(v_pool + src));
+      }
     } else {
       *reinterpret_cast<uint4*>(kd) = make_uint4(0, 0, 0, 0);
       *reinterpret_cast<uint4*>(vd) = make_uint4(0, 0, 0, 0);
@@ -133,13 +162,15 @@ __device__ __forceinline__ const __nv_bfloat16 (
       base + buf * MMA_TILE);
 }
 
-// Pass 1, bfloat16 pools: tensor cores.
+// Pass 1, bfloat16 and byte pools (P): tensor cores.
+template <typename P>
 __global__ void __launch_bounds__(THREADS) verify_split_mma_kernel(
     const __nv_bfloat16* __restrict__ q,       // [B, Tq, KH*G, D]
-    const __nv_bfloat16* __restrict__ k_pool,  // [L, P, KH, TP, D]
-    const __nv_bfloat16* __restrict__ v_pool,
+    const P* __restrict__ k_pool,              // [L, P, KH, TP, D]
+    const P* __restrict__ v_pool,
     const int* __restrict__ page_tables,       // [B, maxp]
     const int* __restrict__ seq_lens,          // [B]
+    const float* __restrict__ k_scales,        // [L, KH] int8, else null
     float* __restrict__ part_m,                // [B, KH, S, R]
     float* __restrict__ part_l,
     float* __restrict__ part_acc,              // [B, KH, S, R, D]
@@ -196,6 +227,7 @@ __global__ void __launch_bounds__(THREADS) verify_split_mma_kernel(
   const size_t page_stride = (size_t)KH * TP * D;
   const size_t kbase = (size_t)layer * num_pages * page_stride + (size_t)h * TP * D;
   const int* row_pages = page_tables + (size_t)b * maxp;
+  const float ksc = head_scale(k_scales, layer, KH, h);
 
   copy_tile(k_buf, v_buf, k_pool, v_pool, row_pages, kbase, page_stride, TP, lo,
             min(MMA_KT, hi - lo), tid);
@@ -214,7 +246,7 @@ __global__ void __launch_bounds__(THREADS) verify_split_mma_kernel(
     __syncthreads();  // this tile landed for every thread
     if (warp_live)  // a warp with no query row only copies
       mma_attend_tile(qa, live, qpos, tile(k_buf, buf), tile(v_buf, buf), t0, nk,
-                      window, sm_scale, o, m, l);
+                      window, sm_scale, ksc, o, m, l);
     __syncthreads();  // this buffer is consumed: the next copy may refill it
   }
 
@@ -312,13 +344,15 @@ __global__ void __launch_bounds__(THREADS) verify_split_f32_kernel(
   }
 }
 
-// Pass 2: merge the non-empty splits of one query row of one (row, kv head).
+// Pass 2: merge the non-empty splits of one query row of one (row, kv
+// head); an int8 pool's V scale multiplies the merged output.
 template <typename T>
 __global__ void __launch_bounds__(D) verify_merge_kernel(
     const float* __restrict__ part_m, const float* __restrict__ part_l,
     const float* __restrict__ part_acc, const int* __restrict__ seq_lens,
-    T* __restrict__ out,  // [B, Tq, KH*G, D]
-    int KH, int G, int TP, int maxp, int Tq, int window, int S) {
+    const float* __restrict__ v_scales,
+    typename Types<T>::Out* __restrict__ out,  // [B, Tq, KH*G, D]
+    int layer, int KH, int G, int TP, int maxp, int Tq, int window, int S) {
   const int b = blockIdx.x, h = blockIdx.y, r = blockIdx.z, d = threadIdx.x;
   const int R = Tq * G;
   const int s_len = seq_lens[b];
@@ -345,28 +379,28 @@ __global__ void __launch_bounds__(D) verify_merge_kernel(
     }
   }
   const int t = r / G, g = r % G;
-  out[(((size_t)b * Tq + t) * (KH * G) + h * G + g) * D + d] =
-      from_f<T>(A / (Lsum == 0.f ? 1.f : Lsum));
+  out[(((size_t)b * Tq + t) * (KH * G) + h * G + g) * D + d] = from_f<typename Types<T>::Out>(
+      A * head_scale(v_scales, layer, KH, h) / (Lsum == 0.f ? 1.f : Lsum));
 }
 
-int split_bf16(dim3 grid, const void* q, const void* k_pool, const void* v_pool,
-               const void* page_tables, const void* seq_lens, float* part_m,
-               float* part_l, float* part_acc, int layer, int num_pages,
-               int KH, int G, int TP, int maxp, int Tq, int window,
-               float sm_scale, cudaStream_t stream) {
+template <typename P>
+int split_mma(dim3 grid, const void* q, const void* k_pool, const void* v_pool,
+              const void* page_tables, const void* seq_lens,
+              const float* k_scales, float* part_m, float* part_l,
+              float* part_acc, int layer, int num_pages, int KH, int G, int TP,
+              int maxp, int Tq, int window, float sm_scale, cudaStream_t stream) {
   static bool configured = false;  // dynamic shared memory above 48 KB
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        verify_split_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        verify_split_mma_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)kSmemBF16);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  verify_split_mma_kernel<<<grid, THREADS, kSmemBF16, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pool,
-      (const __nv_bfloat16*)v_pool, (const int*)page_tables,
-      (const int*)seq_lens, part_m, part_l, part_acc, layer, num_pages, KH, G,
-      TP, maxp, Tq, window, sm_scale);
+  verify_split_mma_kernel<P><<<grid, THREADS, kSmemBF16, stream>>>(
+      (const __nv_bfloat16*)q, (const P*)k_pool, (const P*)v_pool,
+      (const int*)page_tables, (const int*)seq_lens, k_scales, part_m, part_l,
+      part_acc, layer, num_pages, KH, G, TP, maxp, Tq, window, sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -393,14 +427,16 @@ int split_f32(dim3 grid, const void* q, const void* k_pool, const void* v_pool,
 template <typename T>
 int launch(const void* q, void* k_pool, void* v_pool, const void* page_tables,
            const void* seq_lens, const void* k_new, const void* v_new,
-           const void* slot_pages, const void* slot_offsets, void* out,
+           const void* slot_pages, const void* slot_offsets,
+           const float* k_scales, const float* v_scales, void* out,
            void* scratch, int B, int Tq, int layer, int num_pages, int KH,
            int G, int TP, int maxp, int window, float sm_scale,
            cudaStream_t stream) {
+  using New = typename Types<T>::New;
   verify_write_kernel<T><<<B * Tq, THREADS, 0, stream>>>(
-      (const T*)k_new, (const T*)v_new, (T*)k_pool, (T*)v_pool,
-      (const int*)slot_pages, (const int*)slot_offsets, layer, num_pages, KH,
-      TP);
+      (const New*)k_new, (const New*)v_new, (T*)k_pool, (T*)v_pool,
+      (const int*)slot_pages, (const int*)slot_offsets, k_scales, v_scales,
+      layer, num_pages, KH, TP);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int S = maxp * TP > 0 ? (maxp * TP + SPLIT - 1) / SPLIT : 1;
@@ -409,43 +445,50 @@ int launch(const void* q, void* k_pool, void* v_pool, const void* page_tables,
   float* part_m = part_acc + (size_t)B * KH * S * R * D;
   float* part_l = part_m + (size_t)B * KH * S * R;
   const dim3 grid(B, KH, S);
-  const int rc =
-      sizeof(T) == 2
-          ? split_bf16(grid, q, k_pool, v_pool, page_tables, seq_lens, part_m,
-                       part_l, part_acc, layer, num_pages, KH, G, TP, maxp, Tq,
-                       window, sm_scale, stream)
-          : split_f32(grid, q, k_pool, v_pool, page_tables, seq_lens, part_m,
-                      part_l, part_acc, layer, num_pages, KH, G, TP, maxp, Tq,
-                      window, sm_scale, stream);
+  int rc;
+  if constexpr (sizeof(T) == 4)
+    rc = split_f32(grid, q, k_pool, v_pool, page_tables, seq_lens, part_m,
+                   part_l, part_acc, layer, num_pages, KH, G, TP, maxp, Tq,
+                   window, sm_scale, stream);
+  else
+    rc = split_mma<T>(grid, q, k_pool, v_pool, page_tables, seq_lens, k_scales,
+                      part_m, part_l, part_acc, layer, num_pages, KH, G, TP,
+                      maxp, Tq, window, sm_scale, stream);
   if (rc != 0) return rc;
   verify_merge_kernel<T><<<dim3(B, KH, R), D, 0, stream>>>(
-      part_m, part_l, part_acc, (const int*)seq_lens, (T*)out, KH, G, TP, maxp,
-      Tq, window, S);
+      part_m, part_l, part_acc, (const int*)seq_lens, v_scales,
+      (typename Types<T>::Out*)out, layer, KH, G, TP, maxp, Tq, window, S);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // scratch: B * KH * S * T * G * (D + 2) floats, S = max(ceil(maxp * TP /
-// 256), 1); the wrapper allocates it.  T * G <= 64.
+// 256), 1); the wrapper allocates it.  T * G <= 64.  q, the tokens and out
+// are in the pool's type for float32 and bf16 pools; for int8 and e4m3
+// pools q is bf16, the tokens and out float32.  k_scales / v_scales: an
+// int8 pool's [L, KH] float32 scales (null: 1).
 extern "C" int kvc_paged_verify(
     int dtype, const void* q, void* k_pool, void* v_pool,
     const void* page_tables, const void* seq_lens, const void* k_new,
     const void* v_new, const void* slot_pages, const void* slot_offsets,
-    void* out, void* scratch, int B, int T, int layer, int num_pages, int KH,
-    int G, int TP, int maxp, int window, float sm_scale, void* stream) {
+    const float* k_scales, const float* v_scales, void* out, void* scratch,
+    int B, int T, int layer, int num_pages, int KH, int G, int TP, int maxp,
+    int window, float sm_scale, void* stream) {
   if (G < 1 || T < 1 || T * G > ROWS) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kvc::kF32)
-    return launch<float>(q, k_pool, v_pool, page_tables, seq_lens, k_new,
-                         v_new, slot_pages, slot_offsets, out, scratch, B, T,
-                         layer, num_pages, KH, G, TP, maxp, window, sm_scale,
-                         s);
-  if (dtype == kvc::kBF16)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, page_tables, seq_lens,
-                                 k_new, v_new, slot_pages, slot_offsets, out,
-                                 scratch, B, T, layer, num_pages, KH, G, TP,
-                                 maxp, window, sm_scale, s);
+#define KVC_DTYPE(P)                                                         \
+  return launch<P>(q, k_pool, v_pool, page_tables, seq_lens, k_new, v_new,   \
+                   slot_pages, slot_offsets, k_scales, v_scales, out, scratch, \
+                   B, T, layer, num_pages, KH, G, TP, maxp, window, sm_scale,  \
+                   s)
+  switch (dtype) {
+    case kvc::kF32: KVC_DTYPE(float);
+    case kvc::kBF16: KVC_DTYPE(__nv_bfloat16);
+    case kvc::kI8: KVC_DTYPE(int8_t);
+    case kvc::kE4M3: KVC_DTYPE(kvc::e4m3);
+  }
+#undef KVC_DTYPE
   return (int)cudaErrorInvalidValue;
 }

@@ -236,7 +236,12 @@ class EngineConfig:
     prefill_buckets: tuple[int, ...] = (64, 128, 256, 512, 1024, 2048)
     num_pages: int | None = None  # physical pool pages; None = from free memory
     hbm_utilization: float = 0.3
+    #: pool type: "bfloat16", "float32", or a byte type ("int8",
+    #: "float8_e4m3fn"; page_tokens a multiple of 32) for twice the tokens
     kv_dtype: str = "bfloat16"
+    #: int8 KV: default per-head dequantization scale (amax/127 of expected
+    #: K/V magnitude); override per (layer, head) via set_kv_scales()
+    kv_scale: float = 0.04
     ipc_name: str | None = None
     enable_prefix_caching: bool = True
     max_cached_tokens: int | None = None  # None = KVCACHED_MAX_CACHED_TOKENS
@@ -300,9 +305,13 @@ class LLMEngine:
                 f"unknown scheduling_policy {ec.scheduling_policy!r} "
                 "(expected 'fcfs', 'priority', or 'sjf')"
             )
-        if ec.kv_dtype not in ("bfloat16", "float32"):
+        if ec.kv_dtype not in ("bfloat16", "float32", "int8", "float8_e4m3fn"):
             raise NotImplementedError(
-                f"kv_dtype={ec.kv_dtype!r} is not ported yet (bfloat16, float32)")
+                f"kv_dtype={ec.kv_dtype!r} is not ported yet "
+                "(bfloat16, float32, int8, float8_e4m3fn)")
+        if ec.kv_dtype in ("int8", "float8_e4m3fn") and self.adapter.num_kv_buffers == 1:
+            raise NotImplementedError(
+                f"kv_dtype={ec.kv_dtype!r} for the MLA latent pool is not ported yet")
         if ec.spec_decode:
             dt = str(self.adapter.cfg.dtype)
             if ec.spec_exact and (dt != "float32" or ec.kv_dtype != "float32"):
@@ -344,6 +353,14 @@ class LLMEngine:
                 self.kv_cfg, hbm_budget_bytes=int(budget * ec.hbm_utilization))
         self.pool = DevicePagePool(spec, device=self.device)
         self.k_pools, self.v_pools = self.pool.allocate_arrays()
+        #: int8 pools: per-(layer, kv head) dequantization scales [L, KH]
+        #: for K and V, each ``kv_scale`` until set_kv_scales()
+        self.quant_scales = None
+        if ec.kv_dtype == "int8":
+            shape = (self.kv_cfg.num_layers, self.kv_cfg.num_kv_heads)
+            self.quant_scales = tuple(
+                torch.full(shape, ec.kv_scale, dtype=torch.float32, device=self.device)
+                for _ in range(2))
         self.manager = KVCacheManager(
             self.kv_cfg, self.pool, ipc_name=ec.ipc_name, reserve_null_block=True)
 
@@ -388,6 +405,24 @@ class LLMEngine:
         sample = self.params.embed.reshape(-1)[:64].float().cpu().numpy()
         h.update(sample.tobytes())
         return h.hexdigest()
+
+    def set_kv_scales(self, k_scales, v_scales) -> None:
+        """int8 KV: install per-(layer, kv head) dequantization scales,
+        [L, KH] float32 each; the next step uses them.  Raises ValueError
+        on any other shape."""
+        want = (self.kv_cfg.num_layers, self.kv_cfg.num_kv_heads)
+        ks, vs = (torch.as_tensor(np.asarray(a), dtype=torch.float32).to(self.device)
+                  for a in (k_scales, v_scales))
+        if tuple(ks.shape) != want or tuple(vs.shape) != want:
+            raise ValueError(
+                f"set_kv_scales: expected shape {want} (arena layers x kv heads), "
+                f"got k={tuple(ks.shape)} v={tuple(vs.shape)}")
+        self.quant_scales = (ks, vs)
+
+    @property
+    def _scales_kw(self) -> dict:
+        """The model steps' ``quant_scales`` keyword, when scales are set."""
+        return {} if self.quant_scales is None else {"quant_scales": self.quant_scales}
 
     def _dev(self, a, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
@@ -597,7 +632,7 @@ class LLMEngine:
         logits, _, _ = self.adapter.prefill_step(
             self.params, self._dev(tokens), self._dev(positions),
             self.k_pools, self.v_pools, self._dev(chunk_pages),
-            self._dev(phys), q_start, this_len,
+            self._dev(phys), q_start, this_len, **self._scales_kw,
         )
         seq.num_prefilled = q_start + this_len
         if seq.num_prefilled < plen:
@@ -668,6 +703,7 @@ class LLMEngine:
             self.params, *map(self._dev, (tokens, positions)),
             self.k_pools, self.v_pools,
             *map(self._dev, (chunk_pages, page_tables, q_starts, true_lens)),
+            **self._scales_kw,
         )
         firsts = torch.argmax(logits, dim=-1).cpu().numpy()
         for i, seq in enumerate(seqs):
@@ -728,10 +764,11 @@ class LLMEngine:
         gen = _generator(dev, self._step_count) if sampled else None
         tokens = self._dev(tokens0)
         out = []
+        scales = self._scales_kw
         for j in range(K):
             logits, _, _ = self.adapter.decode_step(
                 self.params, tokens, plan[0, j], self.k_pools, self.v_pools,
-                tables, plan[1, j], plan[2, j], plan[3, j],
+                tables, plan[1, j], plan[2, j], plan[3, j], **scales,
             )
             tokens = _sample_tokens(logits, temps_t, top_ks_t, top_ps_t, gen,
                                     filters=filters, sampled=sampled)
@@ -875,7 +912,7 @@ class LLMEngine:
             kv_lens = seq_lens + T
             logits, _, _ = self.adapter.verify_step(
                 self.params, tokens, pos, self.k_pools, self.v_pools, tables,
-                slot_pages, pos % P, kv_lens)
+                slot_pages, pos % P, kv_lens, **self._scales_kw)
             if sampled:
                 toks, a = _spec_accept(logits, drafts, temps_t, top_ks_t,
                                        top_ps_t, gen, filters=filters)

@@ -25,6 +25,7 @@ from torch import nn
 
 from ..device.pool import resolve_device, torch_dtype
 from ..ops.paged_attention import (
+    BYTE_DTYPES,
     paged_attention_decode,
     paged_attention_decode_plain,
     paged_attention_verify,
@@ -276,6 +277,18 @@ def _heads(params: LlamaModel, cfg: LlamaConfig):
     return params.layers["wq"].shape[-1] // D, params.layers["wk"].shape[-1] // D, D
 
 
+def _kernel_inputs(pool_dtype, quant_scales):
+    """(cast for q and the new K/V, int8 scales kwargs) of a pool: float32
+    and bf16 pools take their own type; byte pools take q and the K/V
+    unquantized (the kernels quantize on write), and int8 pools their
+    ``quant_scales`` = (k_scales, v_scales) [L, KH] float32."""
+    if pool_dtype not in BYTE_DTYPES:
+        return (lambda t: t.to(pool_dtype)), {}
+    if quant_scales is None:
+        return (lambda t: t), {}
+    return (lambda t: t), dict(k_scales=quant_scales[0], v_scales=quant_scales[1])
+
+
 def llama_decode_step(
     params: LlamaModel,
     cfg: LlamaConfig,
@@ -288,10 +301,14 @@ def llama_decode_step(
     slot_offsets: torch.Tensor,  # [B] int32 slot within that page
     seq_lens: torch.Tensor,  # [B] int32 length INCLUDING this token
     *,
+    quant_scales: tuple | None = None,
     reference_attention: bool = False,
 ):
     """One decode token for each of B sequences.  Returns (logits [B, V]
     float32, k_pools, v_pools); the pools are written in place.
+
+    int8 pools: pass ``quant_scales`` = (k_scales, v_scales), each [L, KH]
+    float32; the K/V reach the kernel unquantized and are quantized there.
 
     ``reference_attention`` runs the kernels' plain PyTorch versions
     instead of the kernels, on whatever device the tensors are: the on-card
@@ -299,7 +316,7 @@ def llama_decode_step(
     decode = paged_attention_decode_plain if reference_attention else paged_attention_decode
     B = tokens.shape[0]
     H, KH, D = _heads(params, cfg)
-    pdt = k_pools.dtype
+    cast, scales = _kernel_inputs(k_pools.dtype, quant_scales)
     cos, sin = rope_cos_sin(positions, D, cfg.rope_theta, cfg.rope_scaling)
     x = params.embed[tokens]  # [B, E]
     for i in range(cfg.num_layers):
@@ -310,9 +327,9 @@ def llama_decode_step(
         # fused kernel: write this token's K/V into its page, then attend
         # over everything incl. itself
         attn, _, _ = decode(
-            q.to(pdt), k_pools, v_pools, page_tables, seq_lens, i,
-            k.to(pdt), v.to(pdt), slot_pages, slot_offsets,
-            window=cfg.sliding_window,
+            cast(q), k_pools, v_pools, page_tables, seq_lens, i,
+            cast(k), cast(v), slot_pages, slot_offsets,
+            window=cfg.sliding_window, **scales,
         )
         x = x + attn.to(x.dtype).reshape(B, H * D) @ lp["wo"]
         x = _mlp(x, lp, cfg.rms_eps)
@@ -332,17 +349,19 @@ def llama_verify_step(
     slot_offsets: torch.Tensor,  # [B, T] int32
     seq_lens: torch.Tensor,  # [B] int32 length INCLUDING all T fed tokens
     *,
+    quant_scales: tuple | None = None,
     reference_attention: bool = False,
 ):
     """Speculative-decode verification: T tokens per sequence in one
     forward pass (the weights stream once for T tokens), writing their K/V
     and returning the logits at every position.  Returns (logits [B, T, V]
     float32, k_pools, v_pools); the pools are written in place.
-    ``reference_attention`` as in :func:`llama_decode_step`."""
+    ``quant_scales`` and ``reference_attention`` as in
+    :func:`llama_decode_step`."""
     verify = paged_attention_verify_plain if reference_attention else paged_attention_verify
     B, T = tokens.shape
     H, KH, D = _heads(params, cfg)
-    pdt = k_pools.dtype
+    cast, scales = _kernel_inputs(k_pools.dtype, quant_scales)
     cos, sin = rope_cos_sin(positions, D, cfg.rope_theta, cfg.rope_scaling)
     x = params.embed[tokens]  # [B, T, E]
     for i in range(cfg.num_layers):
@@ -351,9 +370,9 @@ def llama_verify_step(
         q, k, v = qkv_heads(h, lp, H, KH, D, cfg.rms_eps)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         attn, _, _ = verify(
-            q.to(pdt), k_pools, v_pools, page_tables, seq_lens, i,
-            k.to(pdt), v.to(pdt), slot_pages, slot_offsets,
-            window=cfg.sliding_window,
+            cast(q), k_pools, v_pools, page_tables, seq_lens, i,
+            cast(k), cast(v), slot_pages, slot_offsets,
+            window=cfg.sliding_window, **scales,
         )  # [B, T, H, D]
         x = x + attn.to(x.dtype).reshape(B, T, H * D) @ lp["wo"]
         x = _mlp(x, lp, cfg.rms_eps)
@@ -373,20 +392,22 @@ def llama_prefill_batch_step(
     q_starts: torch.Tensor,  # [N] int32 global position of tokens[:, 0]
     true_lens: torch.Tensor,  # [N] int32 real new tokens per row (0 = pad row)
     *,
+    quant_scales: tuple | None = None,
     reference_attention: bool = False,
 ):
     """Prefill N sequences' chunks in one forward pass.  Each row writes
     its chunk through its own ``chunk_pages`` and attends with its own
     (q_start, true_len), so the result is identical to N serial
     :func:`llama_prefill_step` calls.  Returns (logits at each row's last
-    real token [N, V] float32, k_pools, v_pools)."""
+    real token [N, V] float32, k_pools, v_pools).  ``quant_scales`` as in
+    :func:`llama_decode_step` (the page writer takes each layer's row)."""
     if reference_attention:
         write, attend = write_prefill_kv_plain, paged_prefill_attention_batch_plain
     else:
         write, attend = write_prefill_kv, paged_prefill_attention_batch
     N, T = tokens.shape
     H, KH, D = _heads(params, cfg)
-    pdt = k_pools.dtype
+    cast, scales = _kernel_inputs(k_pools.dtype, quant_scales)
     q_starts = q_starts.to(torch.int32)
     true_lens = true_lens.to(torch.int32)
     kv_lens = q_starts + true_lens
@@ -402,13 +423,15 @@ def llama_prefill_batch_step(
         # the batch into one [KH, N*T, D] stream over N*T/P pages
         write(
             k_pools, v_pools,
-            k.to(pdt).permute(2, 0, 1, 3).reshape(KH, N * T, D),
-            v.to(pdt).permute(2, 0, 1, 3).reshape(KH, N * T, D),
+            cast(k).permute(2, 0, 1, 3).reshape(KH, N * T, D),
+            cast(v).permute(2, 0, 1, 3).reshape(KH, N * T, D),
             flat_pages, i,
+            **({"k_scale": quant_scales[0][i], "v_scale": quant_scales[1][i]}
+               if scales else {}),
         )
         attn = attend(
-            q.to(pdt), k_pools, v_pools, page_tables, q_starts, kv_lens, i,
-            window=cfg.sliding_window,
+            cast(q), k_pools, v_pools, page_tables, q_starts, kv_lens, i,
+            window=cfg.sliding_window, **scales,
         )  # [N, T, H, D]
         x = x + attn.to(x.dtype).reshape(N, T, H * D) @ lp["wo"]
         x = _mlp(x, lp, cfg.rms_eps)
@@ -430,6 +453,7 @@ def llama_prefill_step(
     q_start,  # global position of tokens[0] (page-aligned)
     true_len,  # real new tokens in the chunk
     *,
+    quant_scales: tuple | None = None,
     reference_attention: bool = False,
 ):
     """Prefill one chunk of one sequence: write its K/V into its pages, then
@@ -441,6 +465,6 @@ def llama_prefill_step(
     logits, k_pools, v_pools = llama_prefill_batch_step(
         params, cfg, tokens[None], positions[None], k_pools, v_pools,
         chunk_pages[None], page_table[None], as_row(q_start), as_row(true_len),
-        reference_attention=reference_attention,
+        quant_scales=quant_scales, reference_attention=reference_attention,
     )
     return logits[0], k_pools, v_pools

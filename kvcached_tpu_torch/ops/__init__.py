@@ -2,7 +2,9 @@
 PyTorch versions.
 
 ``KERNELS`` names each kernel wrapper; :func:`launch_counts` and
-:func:`reset_launch_counts` read and zero the wrappers' launch counters.
+:func:`reset_launch_counts` read and zero the wrappers' launch counters,
+:func:`launch_counts_by_dtype` reads them by pool type (the int8 and fp8
+modes of K1-K4 are their launches on byte pools).
 """
 
 from .paged_attention import (
@@ -14,6 +16,8 @@ from .paged_attention import (
     paged_attention_verify,
     paged_attention_verify_mla,
     paged_attention_verify_plain,
+    quantize_kv,
+    to_e4m3,
     write_prefill_kv,
     write_prefill_kv_plain,
     write_prefill_kv_single,
@@ -46,14 +50,20 @@ def launch_counts() -> dict[str, int]:
     return {k: fn.launches for k, fn in KERNELS.items()}
 
 
+def launch_counts_by_dtype() -> dict[str, dict[str, int]]:
+    return {k: dict(fn.launches_by_dtype) for k, fn in KERNELS.items()}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        fn.launches_by_dtype = {}
 
 
 __all__ = [
     "KERNELS",
     "launch_counts",
+    "launch_counts_by_dtype",
     "reset_launch_counts",
     "paged_attention",
     "paged_attention_decode",
@@ -67,6 +77,8 @@ __all__ = [
     "paged_prefill_attention_batch",
     "paged_prefill_attention_batch_mla",
     "paged_prefill_attention_batch_plain",
+    "quantize_kv",
+    "to_e4m3",
     "write_prefill_kv",
     "write_prefill_kv_plain",
     "write_prefill_kv_single",

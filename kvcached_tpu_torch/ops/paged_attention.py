@@ -32,11 +32,19 @@ does not take raises.  The pools are updated in place and returned, where
 the JAX package donated them and got new arrays back.  Each wrapper counts
 its kernel launches in ``<wrapper>.launches``.
 
-The kernels take float32 and bfloat16 pools with head_dim 128, and in the
-MLA mode one latent pool of DeepSeek-V2's width (640 lanes, values 512).
-int8 and fp8 pools, logit soft-capping, the MLA mode of the read-only
-:func:`paged_attention` and the MLA mode with several kv heads or a window
-raise ``NotImplementedError``: they are not ported yet.
+The kernels take float32, bfloat16, int8 and float8_e4m3fn pools with
+head_dim 128, and in the MLA mode one float32 or bfloat16 latent pool of
+DeepSeek-V2's width (640 lanes, values 512).  Byte pools hold what the
+reference's writes store: int8 ``clip(round(x / scale), -127, 127)`` with
+per-(layer, kv head) float32 scales ``[L, KH]`` (the K scale folds into the
+scores, the V scale into the output), e4m3 the float32 value rounded to
+nearest even with NaN past ±464 (:func:`to_e4m3`); their matmuls take bf16
+operands with float32 accumulation, as the TPU kernels' do.  Logit
+soft-capping, the MLA mode of the read-only :func:`paged_attention`, the
+MLA mode with several kv heads, a window or a byte pool raise
+``NotImplementedError``: they are not ported yet.  Each wrapper counts its
+launches in ``<wrapper>.launches`` and by pool type in
+``<wrapper>.launches_by_dtype``.
 """
 
 from __future__ import annotations
@@ -50,7 +58,14 @@ import torch
 from . import _build
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: pool type → the kernels' dtype code (csrc/kv_common.cuh DType)
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+                 torch.float8_e4m3fn: 3}
+#: pools of one byte a value: quantized on write, bf16 matmul operands
+BYTE_DTYPES = (torch.int8, torch.float8_e4m3fn)
+#: the largest magnitude the reference's float32 → e4m3 conversion keeps
+#: finite: 464 ties to 448, anything larger becomes NaN
+E4M3_LIMIT = 464.0
 KERNEL_HEAD_DIM = 128
 MAX_GQA_GROUP = 16
 #: tokens per block of K1's split-K pass (csrc/paged_decode.cu SPLIT)
@@ -76,17 +91,98 @@ MLA_MIN_SPLIT = 128
 # ---------------------------------------------------------------------------
 
 
-def _unsupported(mla_v_dim=None, k_scales=None, v_scales=None,
-                 logit_softcap=None, pool_dtype=None) -> None:
+def _unsupported(mla_v_dim=None, logit_softcap=None, pool_dtype=None) -> None:
     if mla_v_dim is not None:
         raise NotImplementedError("the MLA single-buffer mode is not ported yet")
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError("int8 KV scales are not ported yet")
     if logit_softcap is not None:
         raise NotImplementedError("logit soft-capping is not ported yet")
     if pool_dtype is not None and pool_dtype not in KERNEL_DTYPES:
         raise NotImplementedError(
-            f"{pool_dtype} pools are not ported yet (float32, bfloat16 only)")
+            f"{pool_dtype} pools are not ported yet "
+            "(float32, bfloat16, int8, float8_e4m3fn)")
+
+
+def _count(wrapper, dtype) -> None:
+    """One launch of ``wrapper``'s kernel on a ``dtype`` pool."""
+    wrapper.launches += 1
+    name = str(dtype).replace("torch.", "")
+    wrapper.launches_by_dtype[name] = wrapper.launches_by_dtype.get(name, 0) + 1
+
+
+def _head_scales(scales, pool_dtype, layer):
+    """Layer ``layer``'s per-kv-head int8 scales [KH] float32, or None where
+    none apply (other pools, or no scales: the reference's ones)."""
+    if scales is None or pool_dtype != torch.int8:
+        return None
+    return scales[int(layer)].float()
+
+
+def _scales_arg(scales, pool_dtype, L, KH, device):
+    """The int8 scales [L, KH] as the kernels take them (float32,
+    contiguous, on the pools' device), or None."""
+    if scales is None or pool_dtype != torch.int8:
+        return None
+    scales = scales.to(device=device, dtype=torch.float32).contiguous()
+    if tuple(scales.shape) != (L, KH):
+        raise ValueError(f"int8 scales must be [L, KH] = {(L, KH)}, got {tuple(scales.shape)}")
+    return scales
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def to_e4m3(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as float8_e4m3fn the way the reference converts it (float32 →
+    e4m3, round to nearest even, no saturation): NaN with ``x``'s sign where
+    ``|x| > 464`` or ``x`` is not finite.  torch's own cast saturates at
+    ±448 instead; the two agree everywhere else."""
+    x = x.float()
+    bits = x.to(torch.float8_e4m3fn).view(torch.uint8)
+    nan = torch.where(torch.signbit(x), 0xFF, 0x7F).to(torch.uint8)
+    bits = torch.where(x.abs() <= E4M3_LIMIT, bits, nan)
+    return bits.view(torch.float8_e4m3fn)
+
+
+def quantize_kv(x: torch.Tensor, dtype, scale=None) -> torch.Tensor:
+    """``x`` as a ``dtype`` pool stores it, the reference's write: int8
+    ``clip(round(x / scale), -127, 127)`` in float32 (round half to even;
+    NaN becomes 0, as XLA converts it; ``scale`` broadcasts against ``x``,
+    None is 1), e4m3 :func:`to_e4m3`, any other type a cast."""
+    if dtype == torch.int8:
+        x = x.float()
+        if scale is not None:
+            x = x / scale
+        x = torch.clamp(torch.round(x), -127, 127)
+        return torch.nan_to_num(x, nan=0.0).to(torch.int8)
+    if dtype == torch.float8_e4m3fn:
+        return to_e4m3(x)
+    return x.to(dtype)
+
+
+def _mm_dtype(pool_dtype):
+    """Matmul operand type of a pool: float32 pools multiply in float32,
+    narrower ones in bf16 (int8 and e4m3 values are exact in bf16)."""
+    return torch.float32 if pool_dtype == torch.float32 else torch.bfloat16
+
+
+def _io_dtypes(pool_dtype):
+    """(q, written-token, output) types of the CUDA kernels for a pool: the
+    pool's own type for float32 and bf16 pools; for byte pools bf16 q (the
+    matmul operand), float32 tokens (quantized in the kernel) and a float32
+    output."""
+    if pool_dtype in BYTE_DTYPES:
+        return torch.bfloat16, torch.float32, torch.float32
+    return pool_dtype, pool_dtype, pool_dtype
+
+
+def _out(o, pool_dtype, q_dtype):
+    """The kernels' output: rounded to the pool's type for float32 and
+    bf16 pools (their q and output are in it), straight to q's type for
+    byte pools (the reference's output dtype)."""
+    if pool_dtype in BYTE_DTYPES:
+        return o.to(q_dtype)
+    return o.to(pool_dtype).to(q_dtype)
 
 
 def _on_cpu(*tensors) -> bool:
@@ -143,18 +239,21 @@ def _op_round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype).float()
 
 
-def _masked_softmax_pv(s, valid, v, op_dtype):
+def _masked_softmax_pv(s, valid, v, op_dtype, v_scale=None):
     """Softmax over the last axis of float32 scores ``s`` restricted to
     ``valid``, times float32 values ``v``: the function every flash loop of
     the kernels computes.  The weights are rounded to the operand type
-    before they multiply V (bf16 pools), and a row with nothing valid
-    yields zeros."""
+    before they multiply V (bf16 operands), the int8 V scale ``v_scale``
+    (broadcasting against the product) multiplies their product, and a row
+    with nothing valid yields zeros."""
     s = s.masked_fill(~valid, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     pv = torch.matmul(_op_round(p, op_dtype), v)
+    if v_scale is not None:
+        pv = pv * v_scale
     return pv / torch.where(l == 0, torch.ones_like(l), l)
 
 
@@ -171,12 +270,14 @@ def _gather_pages(pool_layer, page_tables):
 # ---------------------------------------------------------------------------
 
 
-def _write_slots(pool, layer, new, slot_pages, slot_offsets):
+def _write_slots(pool, layer, new, slot_pages, slot_offsets, scale=None):
     """Store each token of ``new`` [..., KH, D] at its (page, offset) slot
-    of ``layer``; slots on the zero page are discarded."""
+    of ``layer`` (quantized for a byte pool, ``scale`` [KH] the int8
+    scales); slots on the zero page are discarded."""
     keep = slot_pages != 0
     pages, offs = slot_pages[keep].long(), slot_offsets[keep].long()
-    pool[layer, pages, :, offs] = new[keep].to(pool.dtype)
+    pool[layer, pages, :, offs] = quantize_kv(
+        new[keep], pool.dtype, None if scale is None else scale[:, None])
 
 
 def _kv_values(k_pool, v_pool, layer, page_tables, mla_v_dim):
@@ -198,10 +299,12 @@ def paged_attention_decode_plain(
     q, k_pool, v_pool, page_tables, seq_lens, layer,
     k_new, v_new, slot_pages, slot_offsets,
     *, sm_scale=None, window=None, write_kv=True, mla_v_dim=None,
+    k_scales=None, v_scales=None,
 ):
     """Plain PyTorch version of K1 (``write_kv=True``), K1r and, with
     ``mla_v_dim``, K5's decode form (``v_pool`` and ``v_new`` unused): the
-    same function as the CUDA kernels, in dense tensor ops."""
+    same function as the CUDA kernels, in dense tensor ops.  Byte pools
+    quantize the written token; int8 ``k_scales``/``v_scales`` [L, KH]."""
     B, QH, D = q.shape
     KH = k_pool.shape[2]
     G = QH // KH
@@ -209,24 +312,31 @@ def paged_attention_decode_plain(
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
     layer = int(layer)
+    ksc = _head_scales(k_scales, dt, layer)
+    vsc = _head_scales(v_scales, dt, layer)
     if write_kv:
-        _write_slots(k_pool, layer, k_new, slot_pages, slot_offsets)
+        _write_slots(k_pool, layer, k_new, slot_pages, slot_offsets, ksc)
         if mla_v_dim is None:
-            _write_slots(v_pool, layer, v_new, slot_pages, slot_offsets)
+            _write_slots(v_pool, layer, v_new, slot_pages, slot_offsets, vsc)
     k, v = _kv_values(k_pool, v_pool, layer, page_tables, mla_v_dim)
-    qg = _op_round(q.reshape(B, KH, G, D), dt)
+    mm = _mm_dtype(dt)
+    qg = _op_round(q.reshape(B, KH, G, D), mm)
     s = torch.matmul(qg, k.transpose(-1, -2)) * sm_scale  # [B, KH, G, S]
+    if ksc is not None:
+        s = s * ksc[:, None, None]
     pos = torch.arange(k.shape[2], device=q.device)[None]
     sl = seq_lens.long()[:, None]
     valid = pos < sl
     if window:
         valid = valid & (pos >= (sl - window).clamp(min=0))
-    o = _pad_lanes(_masked_softmax_pv(s, valid[:, None, None, :], v, dt), D)
-    return o.reshape(B, QH, D).to(dt).to(q.dtype), k_pool, v_pool
+    o = _masked_softmax_pv(s, valid[:, None, None, :], v, mm,
+                           None if vsc is None else vsc[:, None, None])
+    return _out(_pad_lanes(o, D).reshape(B, QH, D), dt, q.dtype), k_pool, v_pool
 
 
 def _decode_launch(q, k_pool, v_pool, page_tables, seq_lens, layer, k_new,
-                   v_new, slot_pages, slot_offsets, sm_scale, window, write_kv):
+                   v_new, slot_pages, slot_offsets, sm_scale, window, write_kv,
+                   k_scales=None, v_scales=None):
     L, P, KH, TP, D = _require_pools(k_pool, v_pool)
     B, QH, Dq = q.shape
     if Dq != D or QH % KH:
@@ -236,15 +346,18 @@ def _decode_launch(q, k_pool, v_pool, page_tables, seq_lens, layer, k_new,
         raise ValueError(f"GQA group {G} > {MAX_GQA_GROUP} is not supported")
     layer = _layer_index(layer, L)
     dt = k_pool.dtype
-    qc = q.to(dt).contiguous()
+    qdt, ndt, odt = _io_dtypes(dt)
+    qc = q.to(qdt).contiguous()
+    ks = _scales_arg(k_scales, dt, L, KH, q.device)
+    vs = _scales_arg(v_scales, dt, L, KH, q.device)
     maxp = page_tables.shape[1]
     _require(page_tables, "page_tables", torch.int32, (B, maxp))
     _require(seq_lens, "seq_lens", torch.int32, (B,))
     if write_kv:
-        k_new = k_new.to(dt).contiguous()
-        v_new = v_new.to(dt).contiguous()
-        _require(k_new, "k_new", dt, (B, KH, D))
-        _require(v_new, "v_new", dt, (B, KH, D))
+        k_new = k_new.to(ndt).contiguous()
+        v_new = v_new.to(ndt).contiguous()
+        _require(k_new, "k_new", ndt, (B, KH, D))
+        _require(v_new, "v_new", ndt, (B, KH, D))
         _require(slot_pages, "slot_pages", torch.int32, (B,))
         _require(slot_offsets, "slot_offsets", torch.int32, (B,))
         _require_aligned("K1", k_new, v_new)
@@ -257,7 +370,7 @@ def _decode_launch(q, k_pool, v_pool, page_tables, seq_lens, layer, k_new,
         raise ValueError(f"window must be positive, got {window}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
-    out = torch.empty_like(qc)
+    out = torch.empty(qc.shape, dtype=odt, device=q.device)
     # per-split partials (max, sum, acc) of the split-K pass
     GT = 4 if G <= 4 else (8 if G <= 8 else 16)
     splits = -(-maxp * TP // DECODE_SPLIT)
@@ -266,9 +379,9 @@ def _decode_launch(q, k_pool, v_pool, page_tables, seq_lens, layer, k_new,
     lib = _build.load("paged_decode")
     rc = lib.kvc_paged_decode(
         KERNEL_DTYPES[dt], qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        page_tables.data_ptr(), seq_lens.data_ptr(), *ptrs, out.data_ptr(),
-        scratch.data_ptr(), B, layer, P, KH, G, TP, maxp, int(window or 0),
-        float(sm_scale), int(write_kv), _stream(q),
+        page_tables.data_ptr(), seq_lens.data_ptr(), *ptrs, _ptr(ks), _ptr(vs),
+        out.data_ptr(), scratch.data_ptr(), B, layer, P, KH, G, TP, maxp,
+        int(window or 0), float(sm_scale), int(write_kv), _stream(q),
     )
     _build.check(rc, "paged_decode")
     return out.to(q.dtype)
@@ -302,6 +415,10 @@ def paged_attention_decode(
     ``csrc/paged_decode.cu`` splits each (row, kv head) into 256-token
     blocks so that a small batch still fills the SMs, then merges them.
 
+    Byte pools (int8 with ``k_scales``/``v_scales`` [L, KH], or e4m3):
+    ``k_new``/``v_new`` come unquantized and the kernel quantizes them on
+    write; the output is in q's type.
+
     ``mla_v_dim``: K5's decode form (``_decode_write_kernel_mla``).
     ``k_pool`` is the single latent pool, ``k_new`` the latent entries;
     scores use all lanes, values the first ``mla_v_dim``; ``v_pool`` and
@@ -317,16 +434,17 @@ def paged_attention_decode(
                 q, k_pool, page_tables, seq_lens, layer, k_new, slot_pages,
                 slot_offsets, sm_scale=sm_scale, mla_v_dim=mla_v_dim)
         return out, k_pool, None
-    _unsupported(mla_v_dim, k_scales, v_scales, logit_softcap, k_pool.dtype)
+    _unsupported(mla_v_dim, logit_softcap, k_pool.dtype)
     if _on_cpu(q, k_pool, v_pool, page_tables, seq_lens, k_new, v_new,
                slot_pages, slot_offsets):
         return paged_attention_decode_plain(
             q, k_pool, v_pool, page_tables, seq_lens, layer, k_new, v_new,
-            slot_pages, slot_offsets, sm_scale=sm_scale, window=window)
+            slot_pages, slot_offsets, sm_scale=sm_scale, window=window,
+            k_scales=k_scales, v_scales=v_scales)
     out = _decode_launch(q, k_pool, v_pool, page_tables, seq_lens, layer,
                          k_new, v_new, slot_pages, slot_offsets, sm_scale,
-                         window, True)
-    paged_attention_decode.launches += 1
+                         window, True, k_scales, v_scales)
+    _count(paged_attention_decode, k_pool.dtype)
     return out, k_pool, v_pool
 
 
@@ -349,16 +467,18 @@ def paged_attention(
 
     Replaces the Pallas ``_readonly_kernel``: K1's CUDA kernel with the
     write off, bound and design as K1."""
-    _unsupported(mla_v_dim, k_scales, v_scales, logit_softcap, k_pool.dtype)
+    _unsupported(mla_v_dim, logit_softcap, k_pool.dtype)
     if k_pool.dim() == 4:
         k_pool, v_pool = k_pool[None], v_pool[None]
     if _on_cpu(q, k_pool, v_pool, page_tables, seq_lens):
         return paged_attention_decode_plain(
             q, k_pool, v_pool, page_tables, seq_lens, layer, None, None,
-            None, None, sm_scale=sm_scale, window=window, write_kv=False)[0]
+            None, None, sm_scale=sm_scale, window=window, write_kv=False,
+            k_scales=k_scales, v_scales=v_scales)[0]
     out = _decode_launch(q, k_pool, v_pool, page_tables, seq_lens, layer,
-                         None, None, None, None, sm_scale, window, False)
-    paged_attention.launches += 1
+                         None, None, None, None, sm_scale, window, False,
+                         k_scales, v_scales)
+    _count(paged_attention, k_pool.dtype)
     return out
 
 
@@ -367,16 +487,19 @@ def paged_attention(
 # ---------------------------------------------------------------------------
 
 
-def write_prefill_kv_plain(k_pool, v_pool, k_new, v_new, pages, layer):
-    """Plain PyTorch version of K2."""
+def write_prefill_kv_plain(k_pool, v_pool, k_new, v_new, pages, layer, *,
+                           k_scale=None, v_scale=None):
+    """Plain PyTorch version of K2 (byte pools quantize: ``k_scale`` /
+    ``v_scale`` are the layer's int8 scales [KH])."""
     KH, T, D = k_new.shape
     TP = k_pool.shape[3]
     n = T // TP
     layer = int(layer)
     keep = pages != 0  # zero page: discard
     idx = pages[keep].long()
-    for pool, new in ((k_pool, k_new), (v_pool, v_new)):
-        chunks = new.to(pool.dtype).reshape(KH, n, TP, D).transpose(0, 1)
+    for pool, new, sc in ((k_pool, k_new, k_scale), (v_pool, v_new, v_scale)):
+        sc = None if sc is None or pool.dtype != torch.int8 else sc.float()[:, None, None]
+        chunks = quantize_kv(new, pool.dtype, sc).reshape(KH, n, TP, D).transpose(0, 1)
         pool[layer, idx] = chunks[keep]
     return k_pool, v_pool
 
@@ -397,34 +520,50 @@ def write_prefill_kv(
 
     Replaces the Pallas ``_prefill_write_kernel``.  A pure copy, bound by
     device-memory bytes; ``csrc/prefill_write.cu`` gives each (page, kv
-    head) slab one block that moves it as 16-byte vectors."""
-    _unsupported(k_scales=k_scale, v_scales=v_scale, pool_dtype=k_pool.dtype)
+    head) slab one block that moves it as 16-byte vectors.  Byte pools:
+    ``k_new``/``v_new`` come unquantized and the kernel quantizes them in
+    the same pass (int8 with the layer's scales ``k_scale``/``v_scale``
+    [KH], which the reference requires; e4m3 by :func:`to_e4m3`'s rule)."""
+    _unsupported(pool_dtype=k_pool.dtype)
     KH, T, D = k_new.shape
     TP = k_pool.shape[3]
     if T % TP:
         raise ValueError(f"prefill length {T} must be a multiple of page_tokens {TP}")
+    if k_pool.dtype == torch.int8 and (k_scale is None or v_scale is None):
+        raise ValueError("int8 pools need per-head scales k_scale and v_scale")
     if _on_cpu(k_pool, v_pool, k_new, v_new, pages):
-        return write_prefill_kv_plain(k_pool, v_pool, k_new, v_new, pages, layer)
+        return write_prefill_kv_plain(k_pool, v_pool, k_new, v_new, pages, layer,
+                                      k_scale=k_scale, v_scale=v_scale)
     L, P, KHp, _, Dp = _require_pools(k_pool, v_pool)
     if (KHp, Dp) != (KH, D):
         raise ValueError(f"k_new {tuple(k_new.shape)} does not fit pools {tuple(k_pool.shape)}")
     layer = _layer_index(layer, L)
     dt = k_pool.dtype
-    k_new = k_new.to(dt).contiguous()
-    v_new = v_new.to(dt).contiguous()
-    _require(v_new, "v_new", dt, k_new.shape)
     n = T // TP
     _require(pages, "pages", torch.int32, (n,))
-    slab = TP * D * k_pool.element_size()
-    _require_aligned("K2", k_new, v_new, k_pool, v_pool)
     lib = _build.load("prefill_write")
-    rc = lib.kvc_prefill_write(
-        k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), pages.data_ptr(), layer, P, KH, n, slab,
-        _stream(k_pool),
-    )
+    if dt in BYTE_DTYPES:
+        k_new = k_new.float().contiguous()
+        v_new = v_new.float().contiguous()
+        _require(v_new, "v_new", torch.float32, k_new.shape)
+        scales = [_scales_arg(sc if sc is None else sc.reshape(1, KH), dt, 1, KH,
+                              k_pool.device) for sc in (k_scale, v_scale)]
+        _require_aligned("K2", k_new, v_new, k_pool, v_pool)
+        rc = lib.kvc_prefill_write_quant(
+            KERNEL_DTYPES[dt], k_new.data_ptr(), v_new.data_ptr(),
+            k_pool.data_ptr(), v_pool.data_ptr(), pages.data_ptr(),
+            *map(_ptr, scales), layer, P, KH, n, TP * D, _stream(k_pool))
+    else:
+        k_new = k_new.to(dt).contiguous()
+        v_new = v_new.to(dt).contiguous()
+        _require(v_new, "v_new", dt, k_new.shape)
+        _require_aligned("K2", k_new, v_new, k_pool, v_pool)
+        rc = lib.kvc_prefill_write(
+            k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
+            v_pool.data_ptr(), pages.data_ptr(), layer, P, KH, n,
+            TP * D * k_pool.element_size(), _stream(k_pool))
     _build.check(rc, "prefill_write")
-    write_prefill_kv.launches += 1
+    _count(write_prefill_kv, dt)
     return k_pool, v_pool
 
 
@@ -436,12 +575,13 @@ def write_prefill_kv(
 def paged_attention_verify_plain(
     q, k_pool, v_pool, page_tables, seq_lens, layer,
     k_new, v_new, slot_pages, slot_offsets, *, sm_scale=None, window=None,
-    mla_v_dim=None,
+    mla_v_dim=None, k_scales=None, v_scales=None,
 ):
     """Plain PyTorch version of K4 and, with ``mla_v_dim``, of K5's verify
     form (``v_pool`` and ``v_new`` unused): the same function as the CUDA
     kernels, in dense tensor ops.  Keys past the page-table width do not
-    exist (the table is gathered whole), as the kernels clamp their range."""
+    exist (the table is gathered whole), as the kernels clamp their range.
+    Byte pools as in :func:`paged_attention_decode_plain`."""
     B, T, QH, D = q.shape
     KH = k_pool.shape[2]
     G = QH // KH
@@ -449,13 +589,18 @@ def paged_attention_verify_plain(
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
     layer = int(layer)
-    _write_slots(k_pool, layer, k_new, slot_pages, slot_offsets)
+    ksc = _head_scales(k_scales, dt, layer)
+    vsc = _head_scales(v_scales, dt, layer)
+    _write_slots(k_pool, layer, k_new, slot_pages, slot_offsets, ksc)
     if mla_v_dim is None:
-        _write_slots(v_pool, layer, v_new, slot_pages, slot_offsets)
+        _write_slots(v_pool, layer, v_new, slot_pages, slot_offsets, vsc)
     k, v = _kv_values(k_pool, v_pool, layer, page_tables, mla_v_dim)
     # [B, T, KH, G, D] -> [B, KH, T*G, D], row = t * G + g
     qg = q.reshape(B, T, KH, G, D).permute(0, 2, 1, 3, 4).reshape(B, KH, T * G, D)
-    s = torch.matmul(_op_round(qg, dt), k.transpose(-1, -2)) * sm_scale
+    mm = _mm_dtype(dt)
+    s = torch.matmul(_op_round(qg, mm), k.transpose(-1, -2)) * sm_scale
+    if ksc is not None:
+        s = s * ksc[:, None, None]
     pos = torch.arange(k.shape[2], device=q.device)[None, None]
     # query row r = t*G + g sits at seq_len - T + t and sees keys below
     # seq_len - T + t + 1
@@ -464,9 +609,11 @@ def paged_attention_verify_plain(
     valid = (pos < limit) & (pos < seq_lens.long()[:, None, None])
     if window:
         valid = valid & (pos >= (limit - window).clamp(min=0))
-    o = _pad_lanes(_masked_softmax_pv(s, valid[:, None], v, dt), D)  # [B, KH, R, D]
+    o = _masked_softmax_pv(s, valid[:, None], v, mm,
+                           None if vsc is None else vsc[:, None, None])
+    o = _pad_lanes(o, D)  # [B, KH, R, D]
     o = o.reshape(B, KH, T, G, D).permute(0, 2, 1, 3, 4).reshape(B, T, QH, D)
-    return o.to(dt).to(q.dtype), k_pool, v_pool
+    return _out(o, dt, q.dtype), k_pool, v_pool
 
 
 def paged_attention_verify(
@@ -501,6 +648,8 @@ def paged_attention_verify(
     T*G query rows of the head (bf16 on the tensor cores), and merges the
     blocks' partials.
 
+    Byte pools as in :func:`paged_attention_decode`.
+
     ``mla_v_dim``: K5's verify form (``_verify_write_kernel_mla``), as in
     :func:`paged_attention_decode`."""
     if mla_v_dim is not None:
@@ -514,12 +663,13 @@ def paged_attention_verify(
                 q, k_pool, page_tables, seq_lens, layer, k_new, slot_pages,
                 slot_offsets, sm_scale=sm_scale, mla_v_dim=mla_v_dim)
         return out, k_pool, None
-    _unsupported(mla_v_dim, k_scales, v_scales, logit_softcap, k_pool.dtype)
+    _unsupported(mla_v_dim, logit_softcap, k_pool.dtype)
     if _on_cpu(q, k_pool, v_pool, page_tables, seq_lens, k_new, v_new,
                slot_pages, slot_offsets):
         return paged_attention_verify_plain(
             q, k_pool, v_pool, page_tables, seq_lens, layer, k_new, v_new,
-            slot_pages, slot_offsets, sm_scale=sm_scale, window=window)
+            slot_pages, slot_offsets, sm_scale=sm_scale, window=window,
+            k_scales=k_scales, v_scales=v_scales)
     L, P, KH, TP, D = _require_pools(k_pool, v_pool)
     B, T, QH, Dq = q.shape
     if Dq != D or QH % KH:
@@ -530,14 +680,17 @@ def paged_attention_verify(
             f"{T} fed tokens x GQA group {G} = {T * G} query rows > {MAX_VERIFY_ROWS}")
     layer = _layer_index(layer, L)
     dt = k_pool.dtype
-    qc = q.to(dt).contiguous()
-    k_new = k_new.to(dt).contiguous()
-    v_new = v_new.to(dt).contiguous()
+    qdt, ndt, odt = _io_dtypes(dt)
+    qc = q.to(qdt).contiguous()
+    k_new = k_new.to(ndt).contiguous()
+    v_new = v_new.to(ndt).contiguous()
+    ks = _scales_arg(k_scales, dt, L, KH, q.device)
+    vs = _scales_arg(v_scales, dt, L, KH, q.device)
     maxp = page_tables.shape[1]
     _require(page_tables, "page_tables", torch.int32, (B, maxp))
     _require(seq_lens, "seq_lens", torch.int32, (B,))
-    _require(k_new, "k_new", dt, (B, T, KH, D))
-    _require(v_new, "v_new", dt, (B, T, KH, D))
+    _require(k_new, "k_new", ndt, (B, T, KH, D))
+    _require(v_new, "v_new", ndt, (B, T, KH, D))
     _require(slot_pages, "slot_pages", torch.int32, (B, T))
     _require(slot_offsets, "slot_offsets", torch.int32, (B, T))
     _require_aligned("K4", qc, k_new, v_new, k_pool, v_pool)
@@ -545,7 +698,7 @@ def paged_attention_verify(
         raise ValueError(f"window must be positive, got {window}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
-    out = torch.empty_like(qc)
+    out = torch.empty(qc.shape, dtype=odt, device=q.device)
     # per-split partials (max, sum, acc) of each query row
     splits = max(-(-maxp * TP // VERIFY_SPLIT), 1)
     scratch = torch.empty(B * KH * splits * T * G * (D + 2), dtype=torch.float32,
@@ -555,11 +708,11 @@ def paged_attention_verify(
         KERNEL_DTYPES[dt], qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_tables.data_ptr(), seq_lens.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), slot_pages.data_ptr(), slot_offsets.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(), B, T, layer, P, KH, G, TP, maxp,
-        int(window or 0), float(sm_scale), _stream(q),
+        _ptr(ks), _ptr(vs), out.data_ptr(), scratch.data_ptr(), B, T, layer, P,
+        KH, G, TP, maxp, int(window or 0), float(sm_scale), _stream(q),
     )
     _build.check(rc, "paged_verify")
-    paged_attention_verify.launches += 1
+    _count(paged_attention_verify, dt)
     return out.to(q.dtype), k_pool, v_pool
 
 
@@ -593,7 +746,7 @@ def write_prefill_kv_single(
     bound by device-memory bytes: ``csrc/prefill_write.cu``'s K2 kernel
     with one buffer, one block per (page, kv head) slab moving 16-byte
     vectors."""
-    _unsupported(k_scales=scale, pool_dtype=k_pool.dtype)
+    _mla_pool(k_pool.dtype, scale)
     KH, T, D = k_new.shape
     TP = k_pool.shape[3]
     if T % TP:
@@ -616,7 +769,7 @@ def write_prefill_kv_single(
         k_new.data_ptr(), k_pool.data_ptr(), pages.data_ptr(), layer, P, KH, n,
         TP * D * k_pool.element_size(), _stream(k_pool))
     _build.check(rc, "prefill_write_single")
-    write_prefill_kv_single.launches += 1
+    _count(write_prefill_kv_single, k_pool.dtype)
     return k_pool
 
 
@@ -625,10 +778,20 @@ def write_prefill_kv_single(
 # ---------------------------------------------------------------------------
 
 
+def _mla_pool(pool_dtype, *scales) -> None:
+    """The MLA kernels take float32 and bf16 latent pools, without scales."""
+    if any(sc is not None for sc in scales):
+        raise NotImplementedError("int8 scales of the MLA latent pool are not ported yet")
+    if pool_dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"{pool_dtype} MLA latent pools are not ported yet (float32, bfloat16)")
+
+
 def _mla_mode(k_pool, window=None, k_scales=None, v_scales=None, logit_softcap=None):
     """Refuse what the MLA mode does not port: several kv heads, a window,
-    int8 scales, soft-capping, other pool types."""
-    _unsupported(None, k_scales, v_scales, logit_softcap, k_pool.dtype)
+    int8 scales, soft-capping, byte and other pool types."""
+    _unsupported(None, logit_softcap)
+    _mla_pool(k_pool.dtype, k_scales, v_scales)
     if k_pool.dim() != 5 or k_pool.shape[2] != 1:
         raise NotImplementedError(
             "the MLA mode is ported for one latent pool [L, pages, 1, page_tokens, D], "
@@ -738,7 +901,7 @@ def paged_attention_decode_mla(q, k_pool, page_tables, seq_lens, layer, k_new,
         q[:, None], k_pool, page_tables, None, seq_lens, layer, sm_scale=sm_scale,
         mla_v_dim=mla_v_dim, k_new=k_new[:, None], slot_pages=slot_pages[:, None],
         slot_offsets=slot_offsets[:, None])
-    paged_attention_decode_mla.launches += 1
+    _count(paged_attention_decode_mla, k_pool.dtype)
     return out[:, 0].to(q.dtype)
 
 
@@ -756,17 +919,15 @@ def paged_attention_verify_mla(q, k_pool, page_tables, seq_lens, layer, k_new,
         q, k_pool, page_tables, None, seq_lens, layer, sm_scale=sm_scale,
         mla_v_dim=mla_v_dim, k_new=k_new, slot_pages=slot_pages,
         slot_offsets=slot_offsets)
-    paged_attention_verify_mla.launches += 1
+    _count(paged_attention_verify_mla, k_pool.dtype)
     return out.to(q.dtype)
 
 
-paged_attention_decode.launches = 0
-paged_attention.launches = 0
-write_prefill_kv.launches = 0
-paged_attention_verify.launches = 0
-write_prefill_kv_single.launches = 0
-paged_attention_decode_mla.launches = 0
-paged_attention_verify_mla.launches = 0
+for _wrapper in (paged_attention_decode, paged_attention, write_prefill_kv,
+                 paged_attention_verify, write_prefill_kv_single,
+                 paged_attention_decode_mla, paged_attention_verify_mla):
+    _wrapper.launches = 0
+    _wrapper.launches_by_dtype = {}
 
 
 # ---------------------------------------------------------------------------

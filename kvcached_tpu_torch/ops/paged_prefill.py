@@ -13,6 +13,10 @@ tensors only; its launches are counted in
 is the N=1 view.  Rows are independent in the kernel, so a batch is
 bit-identical to N serial calls; rows with ``kv_len == 0`` give zeros.
 
+Byte pools (int8 with ``k_scales``/``v_scales`` [L, KH], or e4m3) multiply
+bf16 operands with float32 accumulation and give the output in q's type,
+as in :mod:`.paged_attention`.
+
 The MLA mode (``mla_v_dim``, K3m: the same Pallas kernel over the single
 latent pool) launches ``csrc/mla_attend.cu`` through
 :func:`paged_prefill_attention_batch_mla`, counted there.
@@ -28,16 +32,23 @@ from . import _build
 from .paged_attention import (
     KERNEL_DTYPES,
     MLA_V_DIM,
+    _count,
+    _head_scales,
+    _io_dtypes,
     _kv_values,
     _layer_index,
     _masked_softmax_pv,
     _mla_mode,
+    _mm_dtype,
     _on_cpu,
     _op_round,
+    _out,
     _pad_lanes,
+    _ptr,
     _require,
     _require_aligned,
     _require_pools,
+    _scales_arg,
     _stream,
     _unsupported,
     mla_attend_launch,
@@ -50,10 +61,11 @@ KERNEL_ROWS = 64
 
 def paged_prefill_attention_batch_plain(
     q, k_pool, v_pool, page_tables, q_starts, kv_lens, layer=0,
-    *, sm_scale=None, window=None, mla_v_dim=None,
+    *, sm_scale=None, window=None, mla_v_dim=None, k_scales=None, v_scales=None,
 ):
     """Plain PyTorch version of K3 and, with ``mla_v_dim``, of K3m (values
-    from the first ``mla_v_dim`` lanes of ``k_pool``; ``v_pool`` unused)."""
+    from the first ``mla_v_dim`` lanes of ``k_pool``; ``v_pool`` unused).
+    int8 pools take ``k_scales``/``v_scales`` [L, KH]."""
     N, T, QH, D = q.shape
     KH = k_pool.shape[2]
     G = QH // KH
@@ -61,22 +73,29 @@ def paged_prefill_attention_batch_plain(
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
     layer = int(layer)
+    ksc = _head_scales(k_scales, dt, layer)
+    vsc = _head_scales(v_scales, dt, layer)
     k, v = _kv_values(k_pool, v_pool, layer, page_tables, mla_v_dim)  # [N, KH, S, D]
     # [N, T, QH, D] -> [N, KH, T*G, D] with row r = t*G + g
+    mm = _mm_dtype(dt)
     qg = _op_round(
         q.reshape(N, T, KH, G, D).permute(0, 2, 1, 3, 4).reshape(N, KH, T * G, D),
-        dt,
+        mm,
     )
     s = torch.matmul(qg, k.transpose(-1, -2)) * sm_scale  # [N, KH, R, S]
+    if ksc is not None:
+        s = s * ksc[:, None, None]
     dev = q.device
     q_pos = q_starts.long()[:, None] + torch.arange(T * G, device=dev)[None] // G
     kv = torch.arange(k.shape[2], device=dev)[None, None, :]
     valid = (kv <= q_pos[:, :, None]) & (kv < kv_lens.long()[:, None, None])
     if window:
         valid = valid & (kv > q_pos[:, :, None] - window)
-    o = _pad_lanes(_masked_softmax_pv(s, valid[:, None], v, dt), D)  # [N, KH, R, D]
+    o = _masked_softmax_pv(s, valid[:, None], v, mm,
+                           None if vsc is None else vsc[:, None, None])
+    o = _pad_lanes(o, D)  # [N, KH, R, D]
     o = o.reshape(N, KH, T, G, D).permute(0, 2, 1, 3, 4).reshape(N, T, QH, D)
-    return o.to(dt).to(q.dtype)
+    return _out(o, dt, q.dtype)
 
 
 def paged_prefill_attention_batch(
@@ -105,6 +124,9 @@ def paged_prefill_attention_batch(
     64-key tiles in shared memory) and skips key tiles past each block's
     causal limit.
 
+    Byte pools: bf16 q, the K/V widened to bf16 tiles, the int8 scales
+    folded into the scores and the output.
+
     ``mla_v_dim``: K3m, the MLA mode over the single latent pool (values
     its first ``mla_v_dim`` lanes, ``v_pool`` ignored)."""
     if mla_v_dim is not None:
@@ -116,11 +138,11 @@ def paged_prefill_attention_batch(
         return paged_prefill_attention_batch_mla(
             q, k_pool, page_tables, q_starts, kv_lens, layer, sm_scale=sm_scale,
             mla_v_dim=mla_v_dim)
-    _unsupported(mla_v_dim, k_scales, v_scales, logit_softcap, k_pool.dtype)
+    _unsupported(mla_v_dim, logit_softcap, k_pool.dtype)
     if _on_cpu(q, k_pool, v_pool, page_tables, q_starts, kv_lens):
         return paged_prefill_attention_batch_plain(
             q, k_pool, v_pool, page_tables, q_starts, kv_lens, layer,
-            sm_scale=sm_scale, window=window)
+            sm_scale=sm_scale, window=window, k_scales=k_scales, v_scales=v_scales)
     L, P, KH, TP, D = _require_pools(k_pool, v_pool)
     N, T, QH, Dq = q.shape
     if Dq != D or QH % KH:
@@ -130,7 +152,10 @@ def paged_prefill_attention_batch(
         raise ValueError(f"GQA group {G} must divide {KERNEL_ROWS}")
     layer = _layer_index(layer, L)
     dt = k_pool.dtype
-    qc = q.to(dt).contiguous()
+    qdt, _, odt = _io_dtypes(dt)
+    qc = q.to(qdt).contiguous()
+    ks = _scales_arg(k_scales, dt, L, KH, q.device)
+    vs = _scales_arg(v_scales, dt, L, KH, q.device)
     _require_aligned("K3", qc, k_pool, v_pool)
     maxp = page_tables.shape[1]
     _require(page_tables, "page_tables", torch.int32, (N, maxp))
@@ -140,16 +165,16 @@ def paged_prefill_attention_batch(
         raise ValueError(f"window must be positive, got {window}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
-    out = torch.empty_like(qc)
+    out = torch.empty(qc.shape, dtype=odt, device=q.device)
     lib = _build.load("paged_prefill")
     rc = lib.kvc_paged_prefill(
         KERNEL_DTYPES[dt], qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_tables.data_ptr(), q_starts.data_ptr(), kv_lens.data_ptr(),
-        out.data_ptr(), N, layer, P, KH, G, TP, maxp, T, int(window or 0),
-        float(sm_scale), _stream(q),
+        _ptr(ks), _ptr(vs), out.data_ptr(), N, layer, P, KH, G, TP, maxp, T,
+        int(window or 0), float(sm_scale), _stream(q),
     )
     _build.check(rc, "paged_prefill")
-    paged_prefill_attention_batch.launches += 1
+    _count(paged_prefill_attention_batch, dt)
     return out.to(q.dtype)
 
 
@@ -167,12 +192,13 @@ def paged_prefill_attention_batch_mla(q, k_pool, page_tables, q_starts, kv_lens,
     width = page_tables.shape[1] * k_pool.shape[3]
     out = mla_attend_launch(q, k_pool, page_tables, q_starts, kv_lens, layer,
                             sm_scale=sm_scale, mla_v_dim=mla_v_dim, split=width)
-    paged_prefill_attention_batch_mla.launches += 1
+    _count(paged_prefill_attention_batch_mla, k_pool.dtype)
     return out.to(q.dtype)
 
 
-paged_prefill_attention_batch.launches = 0
-paged_prefill_attention_batch_mla.launches = 0
+for _wrapper in (paged_prefill_attention_batch, paged_prefill_attention_batch_mla):
+    _wrapper.launches = 0
+    _wrapper.launches_by_dtype = {}
 
 
 def paged_prefill_attention(

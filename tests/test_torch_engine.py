@@ -21,13 +21,13 @@ from kvcached_tpu_torch.engine import EngineConfig, LLMEngine, SamplingParams
 from kvcached_tpu_torch.engine.engine import _filtered_scaled, _sample_tokens
 from kvcached_tpu_torch.models.llama import LlamaConfig
 from kvcached_tpu_torch.weights import params_from_jax
-from test_torch_llama import numpy_jax_params
+from test_torch_llama import jax_fast_compile, jax_lowest, numpy_jax_params
 
 # One intra-op thread: the suite runs in parallel worker processes, where
 # each one's idle OpenMP threads would spin on the others' cores.
 torch.set_num_threads(1)
 
-ENGINE = dict(max_batch=4, max_model_len=128, page_tokens=16, decode_horizon=4,
+ENGINE = dict(max_batch=4, max_model_len=64, page_tokens=32, decode_horizon=4,
               prefill_buckets=(32,), num_pages=16, kv_dtype="float32",
               adaptive_horizon=False)
 MAX_NEW = 8
@@ -40,9 +40,9 @@ def _workload():
     rng = np.random.default_rng(0)
     prefix = [int(t) for t in rng.integers(0, 512, 32)]
     wave1 = [prefix + [1, 2, 3]]
-    # wave 2: a prefix-cache hit, a 70-token prompt (three 32-token chunks)
+    # wave 2: a prefix-cache hit, a 40-token prompt (two 32-token chunks)
     # and two short prompts
-    wave2 = [prefix + [4, 5], [int(t) for t in rng.integers(0, 512, 70)],
+    wave2 = [prefix + [4, 5], [int(t) for t in rng.integers(0, 512, 40)],
              [7, 8, 9], [10, 11]]
     return wave1, wave2
 
@@ -55,11 +55,12 @@ def served():
     jparams, tree = numpy_jax_params(jcfg)
     eng = JLLMEngine(jcfg, JEngineConfig(interpret=True, **ENGINE), params=jparams)
     try:
-        outs = [[o.output_tokens for o in eng.generate(w, JSamplingParams(max_new_tokens=MAX_NEW))]
-                for w in _workload()]
-        hits = eng.kv_metrics()["prefix_cache"]["hits"]
-        preempt = [o.output_tokens for o in eng.generate(
-            PREEMPT_PROMPTS, JSamplingParams(max_new_tokens=PREEMPT_NEW))]
+        with jax_fast_compile():
+            outs = [[o.output_tokens for o in eng.generate(
+                w, JSamplingParams(max_new_tokens=MAX_NEW))] for w in _workload()]
+            hits = eng.kv_metrics()["prefix_cache"]["hits"]
+            preempt = [o.output_tokens for o in eng.generate(
+                PREEMPT_PROMPTS, JSamplingParams(max_new_tokens=PREEMPT_NEW))]
     finally:
         eng.shutdown()
     cfg = LlamaConfig.toy(dtype="float32")
@@ -94,7 +95,7 @@ def test_preemption_and_batched_prefill_keep_tokens(served):
     batched prefill stacks the waiting prompts; neither may change a token
     of the JAX engine's run."""
     cfg, params, _, _, want = served
-    eng = _engine(cfg, params, num_pages=8, prefill_batch=4)
+    eng = _engine(cfg, params, num_pages=5, prefill_batch=4)
     got = [o.output_tokens for o in eng.generate(
         PREEMPT_PROMPTS, SamplingParams(max_new_tokens=PREEMPT_NEW))]
     m = eng.kv_metrics()
@@ -113,7 +114,8 @@ def test_filter_mask_matches_jax():
     temps = np.array([0.7, 1.0, 1.3, 0.5], np.float32)
     top_ks = np.array([5, 0, 12, 1], np.int32)
     top_ps = np.array([1.0, 0.8, 0.6, 0.9], np.float32)
-    j = np.asarray(j_filtered_scaled(logits, temps, top_ks, top_ps, filters=True))
+    j = np.asarray(jax_lowest(lambda *a: j_filtered_scaled(*a, filters=True),
+                              logits, temps, top_ks, top_ps))
     t = _filtered_scaled(*map(torch.from_numpy, (logits, temps, top_ks, top_ps)),
                          filters=True).numpy()
     np.testing.assert_array_equal(np.isfinite(t), np.isfinite(j))

@@ -13,6 +13,8 @@ rope within 1e-4 at positions up to 1000 (float32 cos/sin of large angles
 from two libraries).
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -49,6 +51,33 @@ def numpy_jax_params(jcfg, seed=0):
     return jax.tree.map(jnp.asarray, tree), tree
 
 
+def jax_lowest(fn, *args):
+    """``fn(*args)`` as one program compiled at XLA's lowest optimisation
+    level: interpret-mode Pallas makes large programs, and op-by-op
+    dispatch or XLA's slow passes cost seconds on them."""
+    return jax.jit(fn).lower(*args).compile(
+        {"xla_backend_optimization_level": 0,
+         "xla_llvm_disable_expensive_passes": True})(*args)
+
+
+@contextlib.contextmanager
+def jax_fast_compile():
+    """JAX programs compiled inside skip XLA's slow optimisation passes
+    (the JAX engines' interpret-mode programs: ~15% of their cost)."""
+    prev = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_disable_most_optimizations", prev)
+
+
+def jax_step(step, jcfg, params, *args):
+    """The JAX model step ``step(params, jcfg, *args, interpret=True)``
+    through ``jax_lowest``."""
+    return jax_lowest(lambda p, *a: step(p, jcfg, *a, interpret=True), params, *args)
+
+
 @pytest.fixture(scope="module")
 def toy():
     jcfg = jl.LlamaConfig.toy(dtype="float32", qk_norm=True, attention_bias=True)
@@ -57,8 +86,8 @@ def toy():
     return jcfg, jparams, tcfg, params_from_jax(tree, tcfg, device="cpu")
 
 
-def _pools(cfg):
-    shape = (cfg.num_layers, P, cfg.num_kv_heads, TP, cfg.head_dim)
+def _pools(cfg, tp=TP):
+    shape = (cfg.num_layers, P, cfg.num_kv_heads, tp, cfg.head_dim)
     return np.zeros(shape, np.float32), np.zeros(shape, np.float32)
 
 
@@ -98,17 +127,19 @@ def test_prefill_batch_then_decode_match(toy):
     N, T = 2, 32
     tokens = rng.integers(0, jcfg.vocab_size, (N, T)).astype(np.int32)
     q_starts = np.zeros(N, np.int32)
-    true_lens = np.array([20, 32], np.int32)
+    true_lens = np.array([20, 31], np.int32)
     positions = (q_starts[:, None] + np.arange(T)[None]).astype(np.int32)
-    chunk_pages = np.array([[3, 7], [5, 9]], np.int32)
-    page_tables = np.zeros((N, 4), np.int32)
-    page_tables[:, :2] = chunk_pages
-    kp, vp = _pools(jcfg)
+    # one 32-token page a row: the JAX kernels' interpret-mode programs
+    # grow with the pages a table holds
+    tp = 32
+    chunk_pages = np.array([[3], [5]], np.int32)
+    page_tables = chunk_pages.copy()
+    kp, vp = _pools(jcfg, tp)
 
-    j_logits, jk, jv = jl.llama_prefill_batch_step(
-        jparams, jcfg, *map(jnp.asarray, (tokens, positions, kp, vp,
-                                          chunk_pages, page_tables, q_starts,
-                                          true_lens)), interpret=True)
+    j_logits, jk, jv = jax_step(
+        jl.llama_prefill_batch_step, jcfg, jparams,
+        *map(jnp.asarray, (tokens, positions, kp, vp, chunk_pages, page_tables,
+                           q_starts, true_lens)))
     tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
     t_logits, tk, tv = tl.llama_prefill_batch_step(
         tparams, tcfg, *map(torch.from_numpy, (tokens, positions)), tk, tv,
@@ -121,14 +152,13 @@ def test_prefill_batch_then_decode_match(toy):
     toks = np.asarray(jnp.argmax(j_logits, -1)).astype(np.int32)
     pos = true_lens.copy()
     seq_lens = pos + 1
-    slot_pages = page_tables[np.arange(N), pos // TP]
-    slot_pages[1] = 0  # row 1 overflows into the zero page: write discarded
+    slot_pages = page_tables[np.arange(N), pos // tp]
+    slot_pages[1] = 0  # row 1's slot is the zero page: its write is discarded
     slot_pages = slot_pages.astype(np.int32)
-    slot_offsets = (pos % TP).astype(np.int32)
-    j_logits, jk, jv = jl.llama_decode_step(
-        jparams, jcfg, *map(jnp.asarray, (toks, pos)), jk, jv,
-        *map(jnp.asarray, (page_tables, slot_pages, slot_offsets, seq_lens)),
-        interpret=True)
+    slot_offsets = (pos % tp).astype(np.int32)
+    j_logits, jk, jv = jax_step(
+        jl.llama_decode_step, jcfg, jparams, *map(jnp.asarray, (toks, pos)), jk, jv,
+        *map(jnp.asarray, (page_tables, slot_pages, slot_offsets, seq_lens)))
     t_logits, tk, tv = tl.llama_decode_step(
         tparams, tcfg, *map(torch.from_numpy, (toks, pos)), tk, tv,
         *map(torch.from_numpy, (page_tables, slot_pages, slot_offsets, seq_lens)))

@@ -23,6 +23,7 @@ from kvcached_tpu_torch import shm
 from kvcached_tpu_torch.engine import EngineConfig, LLMEngine, SamplingParams
 from kvcached_tpu_torch.models.mla import MLAConfig
 from kvcached_tpu_torch.weights import params_from_jax
+from test_torch_llama import jax_fast_compile
 from test_torch_mla_model import numpy_jax_mla_params
 
 # One intra-op thread: the suite runs in parallel worker processes, where
@@ -47,7 +48,9 @@ def served():
     jparams, tree = numpy_jax_mla_params(jcfg)
     eng = JLLMEngine(jcfg, JEngineConfig(interpret=True, **ECFG), params=jparams)
     try:
-        want = [o.output_tokens for o in eng.generate(PROMPTS, JSamplingParams(max_new_tokens=NEW))]
+        with jax_fast_compile():
+            want = [o.output_tokens for o in eng.generate(
+                PROMPTS, JSamplingParams(max_new_tokens=NEW))]
     finally:
         eng.shutdown()
     cfg = MLAConfig.toy(dtype="float32")

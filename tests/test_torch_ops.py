@@ -23,6 +23,7 @@ from kvcached_tpu.ops.paged_prefill import (
     paged_prefill_attention_batch as j_paged_prefill_attention_batch,
 )
 from kvcached_tpu_torch import ops
+from test_torch_llama import jax_lowest
 
 # One intra-op thread: the suite runs in parallel worker processes, where
 # each one's idle OpenMP threads would spin on the others' cores.
@@ -47,12 +48,12 @@ def _t(x):
 def _decode_case(seed=0):
     rng = np.random.default_rng(seed)
     k_pool, v_pool = _pools(rng)
-    B, maxp = 4, 4
+    B, maxp = 4, 2
     pages = rng.permutation(np.arange(1, P))
     page_tables = np.zeros((B, maxp), np.int32)
-    # row 0: long (4 pages), row 1: slot page 0 (write discarded),
+    # row 0: a full table (2 pages), row 1: slot page 0 (write discarded),
     # row 2: zero-length padded row, row 3: short
-    seq_lens = np.array([60, 33, 0, 7], np.int32)
+    seq_lens = np.array([32, 21, 0, 7], np.int32)
     for b, s in enumerate(seq_lens):
         n = -(-s // TP)
         page_tables[b, :n] = pages[b * maxp : b * maxp + n]
@@ -73,9 +74,10 @@ def test_decode_plain_matches_jax():
     the unwindowed decode is held against JAX by tests/test_torch_engine.py."""
     window = 24
     args = _decode_case()
-    out_j, kp_j, vp_j = j_paged_attention_decode(
-        *[jnp.asarray(a) for a in args[:5]], args[5],
-        *[jnp.asarray(a) for a in args[6:]], interpret=True, window=window)
+    out_j, kp_j, vp_j = jax_lowest(
+        lambda q, kp, vp, pt, sl, *rest: j_paged_attention_decode(
+            q, kp, vp, pt, sl, args[5], *rest, interpret=True, window=window),
+        *[jnp.asarray(a) for a in args[:5] + args[6:]])
     t = [_t(a) if isinstance(a, np.ndarray) else a for a in args]
     out_t, kp_t, vp_t = ops.paged_attention_decode(*t, window=window)
     assert kp_t.data_ptr() == t[1].data_ptr(), "pool updated in place"
@@ -115,13 +117,13 @@ def test_prefill_write_plain_matches_jax():
 def _prefill_case(seed=3):
     rng = np.random.default_rng(seed)
     kp, vp = _pools(rng)
-    N, T, maxp = 3, 32, 5
+    N, T, maxp = 3, 32, 3
     pages = rng.permutation(np.arange(1, P))
     page_tables = np.zeros((N, maxp), np.int32)
-    page_tables[0, :5] = pages[:5]
-    page_tables[1, :3] = pages[5:8]
-    q_starts = np.array([48, 0, 0], np.int32)  # row 0 after a cached prefix
-    kv_lens = np.array([48 + 27, 30, 0], np.int32)  # row 2: padding row
+    page_tables[0, :3] = pages[:3]
+    page_tables[1, :2] = pages[3:5]
+    q_starts = np.array([16, 0, 0], np.int32)  # row 0 after a cached page
+    kv_lens = np.array([16 + 27, 30, 0], np.int32)  # row 2: padding row
     q = rng.standard_normal((N, T, QH, D)).astype(np.float32)
     return q, kp, vp, page_tables, q_starts, kv_lens
 
@@ -131,9 +133,9 @@ def test_prefill_plain_matches_jax():
     prefill is held against JAX by tests/test_torch_llama.py."""
     window = 24
     q, kp, vp, pt, qs, kl = _prefill_case()
-    out_j = np.asarray(j_paged_prefill_attention_batch(
-        *map(jnp.asarray, (q, kp, vp, pt, qs, kl)), 1, interpret=True,
-        window=window))
+    out_j = np.asarray(jax_lowest(
+        lambda *a: j_paged_prefill_attention_batch(*a, 1, interpret=True, window=window),
+        *map(jnp.asarray, (q, kp, vp, pt, qs, kl))))
     out_t = ops.paged_prefill_attention_batch(
         *map(_t, (q, kp, vp, pt, qs, kl)), 1, window=window).numpy()
     for n in range(q.shape[0]):

@@ -19,14 +19,15 @@ from kvcached_tpu.models.llama import LlamaConfig as JLlamaConfig
 from kvcached_tpu_torch.engine import EngineConfig, LLMEngine, SamplingParams
 from kvcached_tpu_torch.models.llama import LlamaConfig
 from kvcached_tpu_torch.weights import params_from_jax
-from test_torch_llama import numpy_jax_params
+from test_torch_llama import jax_fast_compile, numpy_jax_params
 
 # One intra-op thread: the suite runs in parallel worker processes, where
 # each one's idle OpenMP threads would spin on the others' cores.
 torch.set_num_threads(1)
 
-ECFG = dict(max_batch=3, max_model_len=192, page_tokens=16, decode_horizon=4,
-            prefill_buckets=(16, 32), num_pages=64, kv_dtype="float32")
+ECFG = dict(max_batch=3, max_model_len=64, page_tokens=32, decode_horizon=4,
+            prefill_buckets=(32,), num_pages=16, kv_dtype="float32",
+            adaptive_horizon=False, spec_gamma=2)
 #: tests/test_spec_decode.py's prompts; the first is repetitive
 PROMPTS = [[1, 2, 3, 1, 2, 3, 1, 2], list(range(40, 60)), [7] * 5]
 NEW = 24
@@ -52,8 +53,9 @@ def served():
     eng = JLLMEngine(jcfg, JEngineConfig(interpret=True, spec_decode=True, **ECFG),
                      params=jparams)
     try:
-        want = [o.output_tokens for o in eng.generate(
-            PROMPTS, JSamplingParams(max_new_tokens=NEW))]
+        with jax_fast_compile():
+            want = [o.output_tokens for o in eng.generate(
+                PROMPTS, JSamplingParams(max_new_tokens=NEW))]
         assert eng.kv_metrics()["spec"]["dispatches"] > 0
     finally:
         eng.shutdown()

@@ -27,7 +27,7 @@ from kvcached_tpu.ops.paged_attention import paged_attention_verify as j_verify
 from kvcached_tpu_torch import ops
 from kvcached_tpu_torch.models import llama as tl
 from kvcached_tpu_torch.weights import params_from_jax
-from test_torch_llama import numpy_jax_params
+from test_torch_llama import jax_lowest, jax_step, numpy_jax_params
 
 # One intra-op thread: the suite runs in parallel worker processes, where
 # each one's idle OpenMP threads would spin on the others' cores.
@@ -62,12 +62,12 @@ def _slots(page_tables, positions):
 def _verify_case(seed=0, T=4):
     rng = np.random.default_rng(seed)
     kp, vp = _pools(rng)
-    B, maxp = 5, 4
+    B, maxp = 5, 2
     pages = rng.permutation(np.arange(1, P))
-    # row 0: long; row 1: long, one discarded slot; row 2: overhangs its
-    # table by 2 < T; row 3: padding (seq_len 0, all slots discarded);
-    # row 4: short
-    seq_lens = np.array([60, 50, maxp * TP + 2, 0, 7], np.int32)
+    # row 0: a full table; row 1: two pages, one discarded slot; row 2:
+    # overhangs its table by 2 < T; row 3: padding (seq_len 0, all slots
+    # discarded); row 4: short
+    seq_lens = np.array([30, 27, maxp * TP + 2, 0, 7], np.int32)
     page_tables = np.zeros((B, maxp), np.int32)
     for b, s in enumerate(seq_lens):
         n = min(-(-s // TP), maxp)
@@ -90,13 +90,14 @@ def _live(seq_lens, T, maxp):
 
 def test_verify_plain_matches_jax():
     """K4 with a window, a discarded slot, a row overhanging its table, a
-    padding row and two long rows; the unwindowed verify is held against
+    padding row and two rows over both pages of their tables; the unwindowed verify is held against
     JAX through the Llama verify step below."""
     window, T = 24, 4
     args = _verify_case(T=T)
-    out_j, kp_j, vp_j = j_verify(
-        *[jnp.asarray(a) for a in args[:5]], args[5],
-        *[jnp.asarray(a) for a in args[6:]], interpret=True, window=window)
+    out_j, kp_j, vp_j = jax_lowest(
+        lambda q, kp, vp, pt, sl, *rest: j_verify(
+            q, kp, vp, pt, sl, args[5], *rest, interpret=True, window=window),
+        *[jnp.asarray(a) for a in args[:5] + args[6:]])
     t = [_t(a) if isinstance(a, np.ndarray) else a for a in args]
     out_t, kp_t, vp_t = ops.paged_attention_verify(*t, window=window)
     assert kp_t.data_ptr() == t[1].data_ptr(), "pool updated in place"
@@ -147,17 +148,17 @@ def test_llama_verify_step_matches_jax():
     tparams = params_from_jax(tree, tcfg, device="cpu")
     rng = np.random.default_rng(2)
     kp, vp = (a[:, :16] for a in _pools(rng))
-    B, T = 2, 4
+    B, T = 2, 2
     tokens = rng.integers(0, jcfg.vocab_size, (B, T)).astype(np.int32)
-    seq_lens = np.array([21, 36], np.int32)
+    seq_lens = np.array([17, 30], np.int32)
     positions = (seq_lens[:, None] - T + np.arange(T)[None]).astype(np.int32)
-    tables = np.array([[3, 7, 0, 0], [5, 9, 11, 0]], np.int32)
+    tables = np.array([[3, 7], [5, 9]], np.int32)  # the fed tokens cross a page
     slot_pages, slot_offsets = _slots(tables, positions)
-    slot_pages[1, 3] = 0  # a discarded write
-    j_logits, jk, jv = jl.llama_verify_step(
-        jparams, jcfg, *map(jnp.asarray, (tokens, positions, kp, vp, tables,
-                                          slot_pages, slot_offsets, seq_lens)),
-        interpret=True)
+    slot_pages[1, 1] = 0  # a discarded write
+    j_logits, jk, jv = jax_step(
+        jl.llama_verify_step, jcfg, jparams,
+        *map(jnp.asarray, (tokens, positions, kp, vp, tables, slot_pages,
+                           slot_offsets, seq_lens)))
     tk, tv = _t(kp), _t(vp)
     t_logits, tk, tv = tl.llama_verify_step(
         tparams, tcfg, *map(_t, (tokens, positions)), tk, tv,
@@ -175,10 +176,11 @@ def test_verify_wrapper_contract(monkeypatch):
     plain version, and counts only launches that happened."""
     q, kp, vp, pt, sl, layer, kn, vn, spg, sof = map(
         lambda a: _t(a) if isinstance(a, np.ndarray) else a, _verify_case())
-    for kw in (dict(mla_v_dim=64), dict(k_scales=torch.ones(L, KH)),
-               dict(logit_softcap=30.0)):
+    for kw in (dict(mla_v_dim=64), dict(logit_softcap=30.0)):
         with pytest.raises(NotImplementedError):
             ops.paged_attention_verify(q, kp, vp, pt, sl, layer, kn, vn, spg, sof, **kw)
+    with pytest.raises(NotImplementedError):  # float16 pools are not ported
+        ops.paged_attention_verify(q, kp.half(), vp.half(), pt, sl, layer, kn, vn, spg, sof)
     pa = importlib.import_module("kvcached_tpu_torch.ops.paged_attention")
     from kvcached_tpu_torch.ops import _build
 

@@ -28,8 +28,8 @@ def test_unported_modes_raise():
     q, kp, vp, pt, sl = _decode_inputs()
     with pytest.raises(NotImplementedError):
         ops.paged_attention(q, kp, vp, pt, sl, 0, logit_softcap=30.0)
-    with pytest.raises(NotImplementedError):
-        ops.paged_attention(q, kp.to(torch.int8), vp.to(torch.int8), pt, sl, 0)
+    with pytest.raises(NotImplementedError):  # float16 pools are not ported
+        ops.paged_attention(q, kp.half(), vp.half(), pt, sl, 0)
     with pytest.raises(NotImplementedError):
         ops.paged_attention(q, kp, vp, pt, sl, 0, mla_v_dim=64)
 
