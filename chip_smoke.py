@@ -53,22 +53,30 @@ Phases (each prints its own lines; any failure exits nonzero):
 8. MLA, after the 8B weights are freed (before phase 6): ``LLMEngine``
    serves the MLA family at DeepSeek-V2-Lite's widths (bf16, 2.61 B
    parameters drawn on the card from a seed) for phase 4's request mix,
-   without and with spec decode, the launch counters zeroed just before
-   and read just after each (K5, K6, K3m, and K5v with spec decode, each
-   > 0); the kernel path's last-position logits (prefill, decode, verify)
-   within 1e-2 of the plain path's at float32; float32 spec tokens
-   identical to plain decode; GREW/SHRANK/CORRECT under a live limit;
+   (a) without and (b) with spec decode, the launch counters zeroed just
+   before and read just after each (K5, K6, K3m, and K5v with spec decode,
+   each > 0); (c) on int8 and e4m3 latent pools: the pages one HBM budget
+   holds (twice bf16's), phase 4's mix on each (K5, K6, K3m of each mode
+   > 0), the float32 logits gate of phase 9 at 3e-2 and float32 spec
+   tokens identical to plain decode on each (K5v of each mode > 0),
+   GREW/SHRANK/CORRECT on int8 (the same function as phase 9); (d) the kernel path's last-position logits (prefill, decode,
+   verify) within 1e-2 of the plain path's at float32; (e) float32 spec
+   tokens identical to plain decode; (f) GREW/SHRANK/CORRECT under a live
+   limit;
 9. byte KV pools, after phase 7 while the 8B weights are loaded: the pages
    one HBM budget holds at bf16, int8 and e4m3 (a byte pool twice bf16's);
    phase 4's request mix on an int8 and on an e4m3 pool (launch counters
    zeroed just before and read just after, by pool type: K1, K2, K3 of each
    mode > 0), tok/s and one decode dispatch's device busy share; at float32
    on each byte pool, the kernel path's last-position logits within 1e-2 of
-   the plain path's and spec decode's greedy tokens identical to plain
-   decode (K4's launches of each mode > 0); GREW/SHRANK/CORRECT on an int8
-   pool.  Phase 3 runs K1, K1r, K2, K3 and K4 on int8 and e4m3 pools too
-   (bf16 q and new K/V, int8 per-(layer, kv head) scales; pools bit-exact,
-   float32 outputs within 2e-2; K2 writes the reference's edge values: int8
+   the plain path's while the byte pool's own effect on the plain path
+   exceeds 1e-2, the two paths' pools equal at layer 0 (an int8 pool's
+   layer 1 differing only to neighbouring codes), and spec
+   decode's greedy tokens identical to plain decode (K4's launches of each
+   mode > 0); GREW/SHRANK/CORRECT on an int8 pool.  Phase 3 runs K1, K1r, K2, K3, K4 and the MLA kernels K5, K5v, K6
+   and K3m on int8 and e4m3 pools too (bf16 q and new K/V, int8 scales per
+   (layer, kv head), one a layer for the latent pool; pools bit-exact,
+   outputs within 2e-2; K2 and K6 write the reference's edge values: int8
    halfway steps and clipping, e4m3 460, 464, 470, -500 and inf).
 
 The line before last is the kernels JSON; the last line is
@@ -92,6 +100,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 BF16_TOL, F32_TOL, LOGITS_REL_TOL = 2e-2, 1e-4, 1e-2
+#: the float32 logits gate on the MLA model's byte latent pools: the kernel
+#: path read 1.15e-2 (int8) and 1.68e-2 (e4m3) from the plain path on the
+#: H100, while a byte pool itself moves the plain path's logits 5.95e-2 to
+#: 0.152 from a float32 pool's, which this gate must refuse; a code that
+#: lands one step away at a rounding boundary moves the 27-layer model more
+#: than Llama-3-8B's (1e-2, read 2.6e-3 to 4.0e-3)
+MLA_BYTE_LOGITS_TOL = 3e-2
 HOLD_CYCLES = 60_000_000  # ~30 ms at the H100's clocks: longer than any enqueue below
 
 CARD = dict(
@@ -546,13 +561,49 @@ def kernel_verify(torch, ops, F, case, dtype, window, timed):
 class MLACase(KernelCase):
     """The MLA kernels' inputs at DeepSeek-V2-Lite's attention widths: one
     latent kv head of MLA_D lanes (values its first MLA_R), MLA_H query
-    heads, the same contexts on shuffled pages as the Llama case."""
+    heads, the same contexts on shuffled pages as the Llama case.  Byte
+    latent pools hold quantized N(0, 1) values (int8 with one scale a
+    layer, ``self.latent_scales`` [L, 1]), and their q and new entries are
+    bf16, as the bf16 model hands them over."""
+
+    def __init__(self, torch, dev, S):
+        super().__init__(torch, dev, S)
+        self.latent_scales = 0.02 + 0.03 * torch.rand((S["L"], 1), generator=self.g,
+                                                      device=dev)
+
+    def scale_kw(self, dtype):
+        """The attention kernels' int8 scale arguments: the layer's K scale
+        serves the values too."""
+        if dtype != self.torch.int8:
+            return {}
+        return dict(k_scales=self.latent_scales, v_scales=self.latent_scales)
 
     def pool(self, dtype):
+        from kvcached_tpu_torch.ops import quantize_kv
+
         S = self.S
-        k = self.randn((S["L"], self.P, 1, S["TP"], S["MLA_D"]), dtype)
+        shape = (S["L"], self.P, 1, S["TP"], S["MLA_D"])
+        if is_byte(self.torch, dtype):
+            k = quantize_kv(self.randn(shape, self.torch.float32), dtype,
+                            self.latent_scales[:, None, :, None, None])
+        else:
+            k = self.randn(shape, dtype)
         k[:, 0] = 0
         return k
+
+    def gather(self, pool, layer, table):
+        """Layer ``layer`` of the latent pool gathered through ``table`` into
+        a contiguous [N, 1, width, D] (keys) and [N, 1, width, R] (values),
+        a byte pool dequantized to bf16: the library yardstick's input."""
+        torch, S = self.torch, self.S
+        N = table.shape[0]
+        k = pool[layer, :, 0][table.long()].reshape(N, 1, -1, S["MLA_D"])
+        if is_byte(torch, pool.dtype):
+            k = k.float()
+            if pool.dtype == torch.int8:
+                k = k * self.latent_scales[layer]
+            k = k.to(torch.bfloat16)
+        return k.contiguous(), k[..., :S["MLA_R"]].contiguous()
 
 
 def mla_decode_verify(torch, ops, F, case, dtype, timed):
@@ -575,8 +626,10 @@ def mla_decode_verify(torch, ops, F, case, dtype, timed):
             slot_pages[2] = 0
         slot_offsets = (pos % TP).to(torch.int32)
         kp = case.pool(dtype)
-        q = case.randn((B, Tq, H, D), dtype)
-        ent = case.randn((B, Tq, 1, D), dtype)
+        io = case.io(dtype)
+        q = case.randn((B, Tq, H, D), io)
+        ent = case.randn((B, Tq, 1, D), io)
+        kw = case.scale_kw(dtype)
         kp2 = kp.clone()
         lay = lambda: 1  # noqa: E731  (the checked calls use layer 1)
         if Tq == 1:
@@ -585,15 +638,15 @@ def mla_decode_verify(torch, ops, F, case, dtype, timed):
             call = lambda pool, plain: (ops.paged_attention_decode_plain if plain  # noqa: E731
                                         else ops.paged_attention_decode)(
                 q1, pool, None, case.page_tables, sl, lay(), ent1, None, sp1, so1,
-                sm_scale=scale, mla_v_dim=R)[0][:, None]
+                sm_scale=scale, mla_v_dim=R, **kw)[0][:, None]
         else:
             call = lambda pool, plain: (ops.paged_attention_verify_plain if plain  # noqa: E731
                                         else ops.paged_attention_verify)(
                 q, pool, None, case.page_tables, sl, lay(), ent, None, slot_pages,
-                slot_offsets, sm_scale=scale, mla_v_dim=R)[0]
+                slot_offsets, sm_scale=scale, mla_v_dim=R, **kw)[0]
         out_k, out_p = call(kp, False), call(kp2, True)
         torch.cuda.synchronize()
-        r = res[name] = dict(pools_bit_exact=bool(torch.equal(kp, kp2)),
+        r = res[name] = dict(pools_bit_exact=_same_bytes(torch, kp, kp2),
                              max_abs_err=_err(torch, out_k[inside], out_p[inside]))
         if not timed:
             continue
@@ -606,20 +659,18 @@ def mla_decode_verify(torch, ops, F, case, dtype, timed):
                  plain_ms=time_ms(torch, lambda: call(kp, True), it))
         # work this data needs: visible (query token, key) pairs, each row's
         # entries read once, q / the fed entries / tables read, the output
-        # and the fed entries written
+        # and the fed entries written (q, the output and the fed entries in
+        # their own type, the pool's entries in the pool's)
         kv = torch.arange(width, device=dev)[None, None]
         vis = (kv <= pos[:, :, None]) & (kv < sl.long()[:, None, None])
         pairs = int(vis.sum()) * H
         keys = int(vis.any(dim=1).sum())
-        isz = kp.element_size()
+        isz, qsz = kp.element_size(), q.element_size()
         written = int((slot_pages != 0).sum())
         r["bound_ms"], r["bound_by"] = bound(
-            keys * D * isz + 2 * B * Tq * H * D * isz + (B * Tq + written) * D * isz
+            keys * D * isz + 2 * B * Tq * H * D * qsz + B * Tq * D * qsz + written * D * isz
             + B * case.maxp * 4 + 3 * B * Tq * 4, pairs * 2 * (D + R))
-        gathered = []
-        for layer in range(L):
-            k = kp[layer, :, 0][case.page_tables.long()].reshape(B, 1, width, D).contiguous()
-            gathered.append((k, k[..., :R].contiguous()))
+        gathered = [case.gather(kp, layer, case.page_tables) for layer in range(L)]
         q4 = q.permute(0, 2, 1, 3).contiguous()  # [B, H, Tq, D]
         mask = vis[:, None]
         r["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -636,14 +687,28 @@ def mla_prefill(torch, ops, F, case, dtype, timed):
     dev, scale = case.dev, S["MLA_SCALE"]
     n = T // TP
     kp = case.pool(dtype)
-    ent = case.randn((1, T, D), dtype)
+    io = case.io(dtype)
+    ent = case.randn((1, T, D), io)
+    kw = case.scale_kw(dtype)
+    wkw = {}
+    if dtype == torch.int8:  # the reference's edge values (see kernel_prefill_write)
+        wkw = dict(scale=torch.full((1,), 0.5, device=dev))
+        ent[0, 0, :6] = torch.tensor([0.25, 0.75, 1.25, -0.25, -0.75, 100.0])
+    elif dtype == torch.float8_e4m3fn:
+        ent[0, 0, :6] = torch.tensor([460.0, 464.0, 470.0, -500.0, float("inf"), 1e-9])
     pages = case.perm[-n:].clone()
     pages[1] = 0  # a discarded chunk
     kp2 = kp.clone()
-    ops.write_prefill_kv_single(kp, ent, pages, 1)
-    ops.write_prefill_kv_single_plain(kp2, ent, pages, 1)
+    ops.write_prefill_kv_single(kp, ent, pages, 1, **wkw)
+    ops.write_prefill_kv_single_plain(kp2, ent, pages, 1, **wkw)
     torch.cuda.synchronize()
-    res = {"K6": dict(pools_bit_exact=bool(torch.equal(kp, kp2)), max_abs_err=_err(torch, kp, kp2))}
+    res = {"K6": dict(pools_bit_exact=_same_bytes(torch, kp, kp2),
+                      max_abs_err=0.0 if is_byte(torch, dtype) else _err(torch, kp, kp2))}
+    if is_byte(torch, dtype):
+        edge = kp[1, int(pages[0]), 0, 0, :6].view(torch.uint8).tolist()
+        want = ([0, 2, 2, 0, 0xFE, 0x7F] if dtype == torch.int8
+                else [0x7E, 0x7E, 0x7F, 0xFF, 0x7F, 0x00])
+        res["K6"]["edge_values_ok"] = edge == want
     q_starts = torch.tensor([0, T, 2 * T, 0], dtype=torch.int32, device=dev)
     kv_lens = torch.tensor([T - 37, T + T // 2, 3 * T, 0], dtype=torch.int32, device=dev)
     N = 4
@@ -653,10 +718,10 @@ def mla_prefill(torch, ops, F, case, dtype, timed):
     for r in range(N - 1):
         need = -(-int(kv_lens[r]) // TP)
         pt[r, :need] = case.perm[base + r * maxp: base + r * maxp + need]
-    q = case.randn((N, T, H, D), dtype)
+    q = case.randn((N, T, H, D), io)
     attend = lambda plain, layer=1: (ops.paged_prefill_attention_batch_plain if plain  # noqa: E731
                                      else ops.paged_prefill_attention_batch)(
-        q, kp, None, pt, q_starts, kv_lens, layer, sm_scale=scale, mla_v_dim=R)
+        q, kp, None, pt, q_starts, kv_lens, layer, sm_scale=scale, mla_v_dim=R, **kw)
     out_k, out_p = attend(False), attend(True)
     torch.cuda.synchronize()
     live = [(r, slice(0, max(int(kv_lens[r] - q_starts[r]), 0))) for r in range(N)]
@@ -671,16 +736,21 @@ def mla_prefill(torch, ops, F, case, dtype, timed):
     lay = lambda: next(cyc) % L  # noqa: E731
     isz = kp.element_size()
     w = res["K6"]
-    k6 = lambda: ops.write_prefill_kv_single(kp, ent, pages, lay())  # noqa: E731
+    if dtype == torch.int8:
+        wkw = dict(scale=case.latent_scales[1])
+    k6 = lambda: ops.write_prefill_kv_single(kp, ent, pages, lay(), **wkw)  # noqa: E731
     w.update(ms=time_ms(torch, k6, it), host_ms=time_ms(torch, k6, it, hold=False),
              plain_ms=time_ms(torch, lambda: ops.write_prefill_kv_single_plain(
-                 kp, ent, pages, lay()), it))
+                 kp, ent, pages, lay(), **wkw), it))
     nlive = int((pages != 0).sum())
-    w["bound_ms"], w["bound_by"] = bound(2 * nlive * TP * D * isz + n * 4, 0)
+    w["bound_ms"], w["bound_by"] = bound(
+        nlive * TP * D * (ent.element_size() + isz) + n * 4, 0)
     keep = (pages != 0).nonzero().squeeze(1)
     idx = pages[keep].long()
     chunks = ent.reshape(1, n, TP, D).transpose(0, 1)[keep].contiguous()
-    w["library_ms"] = time_ms(torch, lambda: kp[lay()].index_copy_(0, idx, chunks), it)
+    # no one PyTorch call quantizes and scatters: byte pools have no yardstick
+    w["library_ms"] = None if is_byte(torch, dtype) else time_ms(
+        torch, lambda: kp[lay()].index_copy_(0, idx, chunks), it)
     a = res["K3m"]
     k3m = lambda: attend(False, lay())  # noqa: E731
     a.update(ms=time_ms(torch, k3m, it), host_ms=time_ms(torch, k3m, it, hold=False),
@@ -691,12 +761,9 @@ def mla_prefill(torch, ops, F, case, dtype, timed):
     vis = (kv <= qpos[:, :, None]) & (kv < kv_lens.long()[:, None, None])
     pairs = int(vis.sum()) * H
     keys = int(vis.any(dim=1).sum())
-    a["bound_ms"], a["bound_by"] = bound(2 * N * T * H * D * isz + keys * D * isz,
+    a["bound_ms"], a["bound_by"] = bound(2 * N * T * H * D * q.element_size() + keys * D * isz,
                                          pairs * 2 * (D + R))
-    gathered = []
-    for layer in range(L):
-        k = kp[layer, :, 0][pt.long()].reshape(N, 1, Sx, D).contiguous()
-        gathered.append((k, k[..., :R].contiguous()))
+    gathered = [case.gather(kp, layer, pt) for layer in range(L)]
     q4 = q.transpose(1, 2).contiguous()
     mask = vis[:, None]
     a["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -741,28 +808,29 @@ def phase_kernels(torch, ops, S, dev):
                 f"K2 {tag} pool bytes differ")
         if timed:
             rows[key("K2")] = dict(w, tolerance=0.0)
-        if is_byte(torch, dtype):
-            continue  # the MLA kernels take no byte pool yet
         # the MLA kernels at DeepSeek-V2-Lite's widths
         mla = {**mla_decode_verify(torch, ops, F, mcase, dtype, timed),
                **mla_prefill(torch, ops, F, mcase, dtype, timed)}
         for name, r in mla.items():
             tol_r = 0.0 if name == "K6" else tol
             ok = r["max_abs_err"] <= tol_r and r.get("pools_bit_exact", True) \
-                and r.get("kv_len0_row_zero", True)
+                and r.get("kv_len0_row_zero", True) and r.get("edge_values_ok", True)
             log(f"[kernels] {name} {tag} (MLA, D={S['MLA_D']}, values {S['MLA_R']}, "
                 f"{S['MLA_H']} heads): max_abs_err={r['max_abs_err']:.3e} (tol {tol_r}) "
                 + ("pools bit-exact " if r.get("pools_bit_exact") else "")
+                + (f"edge values as the reference={r['edge_values_ok']} "
+                   if "edge_values_ok" in r else "")
                 + ("ok" if ok else "FAILED"))
             require(ok, f"{name} {tag} disagrees: {r}")
             if timed:
-                rows[name] = dict(r, tolerance=tol_r)
+                rows[key(name)] = dict(r, tolerance=tol_r)
     from kvcached_tpu_torch.ops.paged_attention import mla_wave_blocks
 
     log("[kernels] MLA blocks a wave (occupancy API), by dtype and query rows a block: "
         + ", ".join(f"{dt} x {qr}: {mla_wave_blocks(dev, getattr(torch, dt), qr)}"
-                    for dt, qr in (("bfloat16", 16), ("bfloat16", 48), ("bfloat16", 32),
-                                   ("float32", 16))))
+                    for dt in ("bfloat16", "int8", "float8_e4m3fn")
+                    for qr in (16, 32, 48, 64))
+        + f", float32 x 16: {mla_wave_blocks(dev, torch.float32, 16)}")
     for name, r in rows.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"[kernels] {name}: {r['ms']:.4f} ms on the device, {r['host_ms']:.4f} ms a "
@@ -796,13 +864,15 @@ def model_steps(cfg):
     return llama.llama_prefill_step, llama.llama_decode_step, llama.llama_verify_step
 
 
-def last_logits(torch, cfg, params, S, dev, reference, kv_dtype=None):
+def last_logits(torch, cfg, params, S, dev, reference, kv_dtype=None, with_pools=False):
     """Last-position logits of a two-chunk prefill (the second chunk at
     q_start = one bucket), of one decode step after it, and of one verify
     step of spec_T fed tokens after that, through the kernels or
     (``reference``) through their plain versions, on fresh pools of the
     model's dtype or ``kv_dtype`` (one latent pool for the MLA family; an
-    int8 pool with the engine's default scales)."""
+    int8 pool with the engine's default scales).  ``with_pools``: returns
+    (the logits, the pools after the steps, the values each layer of a pool
+    was written)."""
     from kvcached_tpu_torch.device.pool import torch_dtype
     from kvcached_tpu_torch.engine import EngineConfig
 
@@ -845,7 +915,11 @@ def last_logits(torch, cfg, params, S, dev, reference, kv_dtype=None):
         params, cfg, prompt[None, 1:Tv + 1], vpos[None], kp, vp, table[None],
         table[vpos // TP][None].contiguous(), (vpos % TP)[None], one(plen + 1 + Tv),
         reference_attention=reference, **kw)
-    return lg_prefill, lg_decode[0], lg_verify[0, -1]
+    logits = lg_prefill, lg_decode[0], lg_verify[0, -1]
+    if with_pools:
+        written = (plen + 1 + Tv) * cfg.num_kv_heads * cfg.head_dim
+        return logits, [p for p in (kp, vp) if p is not None], written
+    return logits
 
 
 def float32_copy(cfg, params):
@@ -1221,40 +1295,76 @@ def phase_spec(torch, ops, cfg, params, S, dev, rehearse):
 # ---------------------------------------------------------------------------
 
 
-def phase_byte_pools(torch, ops, cfg, params, S, dev, rehearse):
-    """Llama-3-8B with int8 and with e4m3 pools: (a) the pages one HBM
-    budget holds per pool type; (b) phase 4's request mix on each byte pool
-    (bf16 model), launch counters zeroed just before and read just after,
-    tok/s and the device busy share of one decode dispatch; (c) float32
-    logits kernel path vs plain path on each byte pool; (d) float32 spec
-    decode vs plain decode on each byte pool (greedy tokens identical); (e)
-    GREW/SHRANK/CORRECT on an int8 pool.  Returns (launches by kernel and
-    mode over (b) and (d), tok/s by mode)."""
-    import numpy as np
+def byte_code_diffs(torch, a, b, mode, written):
+    """Two byte pools [L, pages, KH, TP, D] of ``mode``, code by code, per
+    layer: (the share of a layer's ``written`` values whose codes differ,
+    the most representable values between two codes: 1 for neighbours).
+    An e4m3 code counts by its place among the format's values in order
+    (its magnitude's code, negated below zero; +0 and -0 are one place)."""
+    def place(t):
+        if mode == "int8":
+            return t.int()
+        u = t.view(torch.uint8).int()
+        return torch.where(u >= 0x80, -(u & 0x7F), u)
+    bad = a.view(torch.uint8) != b.view(torch.uint8)
+    share = [n / written for n in bad.flatten(1).sum(1).tolist()]
+    return share, (place(a) - place(b)).abs().flatten(1).amax(1).tolist()
 
+
+def phase_byte_pools(torch, ops, cfg, params, S, dev, rehearse, *, tag, mix_kernels,
+                     spec_kernel, logits_tol):
+    """One model family over int8 and e4m3 pools: Llama-3-8B in phase 9,
+    the MLA family's latent pool in phase 8 (c); ``tag`` prefixes the log
+    lines of parts 1-4.  (1) the pages one HBM budget holds per pool type;
+    (2) phase 4's request mix on each byte pool (bf16 model), launch
+    counters zeroed just before and read just after (``mix_kernels`` of
+    each pool type > 0), tok/s and one decode dispatch's device busy share;
+    (3) at float32 on each byte pool, the logits gate below, and spec
+    decode's greedy tokens identical to plain decode's (``spec_kernel`` of
+    each pool type > 0, counted over the spec run); (4) GREW/SHRANK/CORRECT
+    on an int8 pool.  Returns (launches by kernel and mode, tok/s by mode).
+
+    The logits gate: the kernel path's last-position logits within
+    ``logits_tol`` (norm-relative) of the plain path's, and the byte pool's
+    own effect on the plain path (byte pool vs float32 pool) above
+    ``logits_tol``, so that the gate tells a quantized pool from one that
+    kept float32 entries.  The pools after the steps back the cause of the
+    remaining difference: both paths write layer 0 from identical inputs,
+    so its codes must be equal; layer 1's inputs differ only by layer 0's
+    attention, whose bf16 softmax weights the kernel rounds against the
+    running maxima of its key tiles and the plain version against the
+    row's (phase 3's tolerance), so its entries move by less than an int8
+    step and a differing int8 code must be a neighbour.  e4m3's values
+    crowd towards zero (2^-9 apart below 2^-6), where the same movement
+    crosses several codes.  The deeper layers compound; the shares of
+    differing codes and their distances are printed for every layer."""
     from kvcached_tpu_torch.config import KVConfig
     from kvcached_tpu_torch.device.pool import PoolSpec
     from kvcached_tpu_torch.engine import EngineConfig, LLMEngine, SamplingParams
 
     TP, V, new = S["TP"], cfg.vocab_size, S["max_new"]
     modes = {"int8": "int8", "float8_e4m3fn": "fp8"}
+    part = lambda n: f"[{tag}{n}]"  # noqa: E731
+    buffers = getattr(cfg, "num_kv_buffers", 2)
     kv = lambda dt: KVConfig(  # noqa: E731
         num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-        block_tokens=TP, page_tokens=TP, kv_dtype=dt)
-    bf16_pages = 320 if not rehearse else 96  # phase 4's pool
+        block_tokens=TP, page_tokens=TP, kv_dtype=dt, num_kv_buffers=buffers)
+    bf16_pages = 320 if not rehearse else 96  # phase 4's and phase 8's pools
     budget = bf16_pages * kv("bfloat16").page_bytes
     pages = {dt: PoolSpec.from_config(kv(dt), hbm_budget_bytes=budget).num_pages
              for dt in ("bfloat16", *modes)}
-    log(f"[byte] one HBM budget of {budget / 2**30:.2f} GiB holds "
+    log(f"{part(1)} one HBM budget of {budget / 2**30:.3f} GiB holds "
         + ", ".join(f"{dt} {n} pages ({n * TP} tokens)" for dt, n in pages.items()))
     require(all(pages[dt] == 2 * pages["bfloat16"] for dt in modes),
             "a byte pool holds twice bf16's pages")
     counts, tok_s = {}, {}
-    for mode, tag in modes.items():
+    for mode, mt in modes.items():
         eng = LLMEngine(cfg, EngineConfig(
             max_batch=8, max_model_len=2048 if not rehearse else 256, page_tokens=TP,
             decode_horizon=8, prefill_buckets=S["buckets"], num_pages=pages[mode],
             kv_dtype=mode, prefill_batch=4), params=params, device=dev)
+        require(eng.k_pools.element_size() == 1 and (eng.v_pools is None) == (buffers == 1),
+                "a byte pool holds one byte a value, in the family's buffers")
         rand, greedy, wave1, wave2 = request_mix(S, V, new)
         _, out1, out2, wall = serve_mix(ops, eng, wave1, wave2)
         by_dtype = ops.launch_counts_by_dtype()  # the main path's, by pool type
@@ -1263,17 +1373,17 @@ def phase_byte_pools(torch, ops, cfg, params, S, dev, rehearse):
         eng.shutdown()
         del eng
         th = m["throughput"]
-        tok_s[tag] = dict(prefill=th["prefill_tokens"] / max(th["prefill_seconds"], 1e-9),
-                          decode=th["decode_tokens"] / max(th["decode_seconds"], 1e-9))
-        for k in ("K1", "K2", "K3"):
-            counts[f"{k} {tag}"] = by_dtype[k].get(mode, 0)
+        tok_s[f"{mt} prefill"] = th["prefill_tokens"] / max(th["prefill_seconds"], 1e-9)
+        tok_s[f"{mt} decode"] = th["decode_tokens"] / max(th["decode_seconds"], 1e-9)
+        for k in mix_kernels:
+            counts[f"{k} {mt}"] = by_dtype[k].get(mode, 0)
         outs = out1 + out2
-        log(f"[byte] (b) {mode} pool, {pages[mode]} pages: {len(outs)} requests; wave 2 "
-            f"in {wall:.2f} s: prefill {tok_s[tag]['prefill']:.1f} tok/s, decode "
-            f"{tok_s[tag]['decode']:.1f} tok/s; prefix cache {m['prefix_cache']}; "
+        log(f"{part(2)} {mode} pool, {pages[mode]} pages: {len(outs)} requests; wave 2 in "
+            f"{wall:.2f} s: prefill {tok_s[mt + ' prefill']:.1f} tok/s, decode "
+            f"{tok_s[mt + ' decode']:.1f} tok/s; prefix cache {m['prefix_cache']}; "
             f"launches by pool type {json.dumps(by_dtype)}")
         if prof:
-            log(f"[byte] (b) {mode}: one decode dispatch ({prof['rows']} rows x "
+            log(f"{part(2)} {mode}: one decode dispatch ({prof['rows']} rows x "
                 f"{prof['steps']} steps) under torch.profiler: wall {prof['wall_ms']:.2f} "
                 f"ms, device busy {prof['device_ms']:.2f} ms "
                 f"({100 * prof['device_ms'] / prof['wall_ms']:.1f}%), top kernels "
@@ -1282,26 +1392,45 @@ def phase_byte_pools(torch, ops, cfg, params, S, dev, rehearse):
         require(all(0 <= t < V for o in outs for t in o), "tokens inside the vocabulary")
         require(m["prefix_cache"]["hits"] > 0 and m["prefill_batch"]["dispatches"] > 0,
                 "the prefix hit and batched prefill ran")
-        for k in ("K1", "K2", "K3"):
+        for k in mix_kernels:
             if not rehearse:
-                require(counts[f"{k} {tag}"] > 0, f"{k} {tag} was never launched")
-    # (c), (d) at float32: the same weights widened
+                require(counts[f"{k} {mt}"] > 0, f"{k} {mt} was never launched")
+    # (3) at float32: the same weights widened
     c32, p32 = float32_copy(cfg, params)
     rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
-    rng = np.random.default_rng(5)
+    rand = request_mix(S, V, new)[0]
     B0 = max(S["buckets"])
-    rand = lambda n: [int(t) for t in rng.integers(0, V, n)]  # noqa: E731
-    rep = lambda n, period: (rand(period) * (n // period + 1))[:n]  # noqa: E731
-    prompts = [rep(B0 // 4, 12), rand(B0 // 3), rep(B0 // 8, 7), rand(B0 // 5)]
+    prompts = [(rand(12) * B0)[:B0 // 4], rand(B0 // 3), (rand(7) * B0)[:B0 // 8], rand(B0 // 5)]
     sp = SamplingParams(max_new_tokens=S["spec_new_exact"])
-    for mode, tag in modes.items():
-        kern = last_logits(torch, c32, p32, S, dev, False, kv_dtype=mode)
-        plain = last_logits(torch, c32, p32, S, dev, True, kv_dtype=mode)
-        rels = {w: rel(a, b) for w, a, b in zip(("prefill", "decode", "verify"), kern, plain)}
-        log(f"[byte] (c) {mode} pool, float32 model: last-position logits kernel path "
-            f"vs plain path, norm-relative {json.dumps(rels)} (tol {LOGITS_REL_TOL})")
-        require(max(rels.values()) <= LOGITS_REL_TOL, f"{mode} logits disagree: {rels}")
-        outs = {}
+    where = ("prefill", "decode", "verify")
+    ref32 = last_logits(torch, c32, p32, S, dev, True)  # plain path, float32 pool
+    for mode, mt in modes.items():
+        kern, kpools, written = last_logits(torch, c32, p32, S, dev, False, kv_dtype=mode,
+                                            with_pools=True)
+        plain, ppools, _ = last_logits(torch, c32, p32, S, dev, True, kv_dtype=mode,
+                                       with_pools=True)
+        rels = {w: rel(a, b) for w, a, b in zip(where, kern, plain)}
+        quant = {w: rel(b, r) for w, b, r in zip(where, plain, ref32)}
+        codes = {name: byte_code_diffs(torch, a, b, mode, written)
+                 for name, a, b in zip("KV", kpools, ppools)}
+        del kpools, ppools
+        log(f"{part(3)} {mode} pool, float32 model: last-position logits kernel path vs "
+            f"plain path, norm-relative {json.dumps(rels)} (tol {logits_tol}); the byte "
+            f"pool's own effect (plain path, {mode} pool vs float32 pool) "
+            f"{json.dumps(quant)} (must exceed the tol); share of written codes that "
+            f"differ between the paths' pools, by layer "
+            + json.dumps({n: [float(f"{s:.3e}") for s in sh] for n, (sh, _) in codes.items()})
+            + "; the most values between two codes, by layer "
+            + json.dumps({n: dist for n, (_, dist) in codes.items()}))
+        require(max(rels.values()) <= logits_tol, f"{mode} logits disagree: {rels}")
+        if not rehearse:  # the toy models of a rehearsal move less
+            require(min(quant.values()) > logits_tol,
+                    f"the logits gate cannot tell a {mode} pool from a float32 pool: {quant}")
+        require(all(sh[0] == 0 for sh, _ in codes.values()),
+                f"{mode} layer 0 codes differ, written from identical inputs")
+        require(mode != "int8" or all(dist[1] <= 1 for _, dist in codes.values()),
+                f"{mode} layer 1 codes differ by more than one step")
+        outs, ms = {}, None
         for spec in (False, True):
             eng = LLMEngine(c32, EngineConfig(
                 max_batch=8, max_model_len=2048 if not rehearse else 256, page_tokens=TP,
@@ -1311,24 +1440,25 @@ def phase_byte_pools(torch, ops, cfg, params, S, dev, rehearse):
                 ops.reset_launch_counts()  # --- the byte pool's spec path starts here
             outs[spec] = serve(eng, [(p, sp) for p in prompts])
             if spec:
-                counts[f"K4 {tag}"] = ops.launch_counts_by_dtype()["K4"].get(mode, 0)
-                m = eng.kv_metrics()["spec"]  # --- and ends here
+                counts[f"{spec_kernel} {mt}"] = \
+                    ops.launch_counts_by_dtype()[spec_kernel].get(mode, 0)
+                ms = eng.kv_metrics()["spec"]  # --- and ends here
             eng.shutdown()
             del eng
         same = outs[True] == outs[False]
-        log(f"[byte] (d) {mode} pool, float32 model, {len(prompts)} requests x "
+        log(f"{part(3)} {mode} pool, float32 model, {len(prompts)} requests x "
             f"{S['spec_new_exact']} tokens: spec decode vs plain decode greedy tokens "
-            f"identical: {same}; spec {json.dumps(m)}; K4 {tag} launches "
-            f"{counts[f'K4 {tag}']}")
+            f"identical: {same}; spec {json.dumps(ms)}; {spec_kernel} {mt} launches "
+            f"{counts[f'{spec_kernel} {mt}']}")
         require(same, f"float32 spec decode on the {mode} pool changed greedy tokens")
-        require(m["dispatches"] > 0, "the spec run dispatched no verify")
+        require(ms["dispatches"] > 0, "the spec run dispatched no verify")
         if not rehearse:
-            require(counts[f"K4 {tag}"] > 0, f"K4 {tag} was never launched")
+            require(counts[f"{spec_kernel} {mt}"] > 0, f"{spec_kernel} {mt} was never launched")
     del p32
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    # (e) the elastic gate on an int8 pool (bf16 model)
-    phase_elastic(torch, cfg, params, S, dev, rehearse, tag="byte (e) int8", kv_dtype="int8")
+    # (4) the elastic gate on an int8 pool (bf16 model)
+    phase_elastic(torch, cfg, params, S, dev, rehearse, tag=f"{tag}4 int8", kv_dtype="int8")
     return counts, tok_s
 
 
@@ -1342,10 +1472,11 @@ def phase_mla(torch, ops, S, dev, rehearse):
     (bf16, weights drawn on the card from a seed): (a) phase 4's request mix
     with the launch counters zeroed just before and read just after, K5, K6
     and K3m each > 0; (b) the same mix with spec decode, K4's MLA form K5v
-    > 0; (c) last-position logits kernel path vs plain path at float32; (d)
-    float32 spec tokens (spec_exact) identical to plain decode's; (e)
-    GREW/SHRANK/CORRECT under a live limit.  Returns the launch counts and
-    the bf16 tok/s."""
+    > 0; (c) the same weights over int8 and e4m3 latent pools
+    (:func:`phase_byte_pools`); (d) last-position logits kernel path vs
+    plain path at float32; (e) float32 spec tokens (spec_exact) identical
+    to plain decode's; (f) GREW/SHRANK/CORRECT under a live limit.  Returns
+    the launch counts and the tok/s."""
     from kvcached_tpu_torch.engine import EngineConfig, LLMEngine, SamplingParams
     from kvcached_tpu_torch.models import mla
 
@@ -1404,8 +1535,13 @@ def phase_mla(torch, ops, S, dev, rehearse):
             counts[k] = got[k]
             if not rehearse:
                 require(got[k] > 0, f"{k} was never launched on the MLA path")
+    byte_counts, byte_tok_s = phase_byte_pools(
+        torch, ops, cfg, params, S, dev, rehearse, tag="mla c", mix_kernels=("K5", "K6", "K3m"),
+        spec_kernel="K5v", logits_tol=MLA_BYTE_LOGITS_TOL)
+    counts.update(byte_counts)
+    tok_s.update(byte_tok_s)
     rels = logits_check(torch, cfg, params, S, dev)
-    log(f"[mla] (c) last-position logits, kernel path vs plain path on {dev}, "
+    log(f"[mla] (d) last-position logits, kernel path vs plain path on {dev}, "
         f"norm-relative error: float32 prefill {rels['f32_prefill']:.3e} decode "
         f"{rels['f32_decode']:.3e} verify {rels['f32_verify']:.3e} (tol {LOGITS_REL_TOL}); "
         f"bf16 prefill {rels['bf16_prefill']:.3e} decode {rels['bf16_decode']:.3e} verify "
@@ -1429,12 +1565,12 @@ def phase_mla(torch, ops, S, dev, rehearse):
         del eng
     del p32
     same = outs[True] == outs[False]
-    log(f"[mla] (d) float32, {len(prompts)} requests x {S['spec_new_exact']} tokens: spec "
+    log(f"[mla] (e) float32, {len(prompts)} requests x {S['spec_new_exact']} tokens: spec "
         f"decode (spec_exact) vs plain decode greedy tokens identical: {same}; spec "
         f"{json.dumps(ms)}")
     require(same, "float32 MLA spec decode changed greedy tokens")
     require(ms["dispatches"] > 0, "the float32 MLA spec run dispatched no verify")
-    phase_elastic(torch, cfg, params, S, dev, rehearse, tag="mla elastic")
+    phase_elastic(torch, cfg, params, S, dev, rehearse, tag="mla (f) elastic")
     log(f"[mla] phase 8 in {time.perf_counter() - t_phase:.1f} s")
     return counts, tok_s
 
@@ -1542,7 +1678,9 @@ def main(argv) -> int:
     phase_elastic(torch, cfg, params, S, dev, rehearse)
     spec_counts, spec_tok_s = phase_spec(torch, ops, cfg, params, S, dev, rehearse)
     counts["K4"] = spec_counts["K4"]
-    byte_counts, byte_tok_s = phase_byte_pools(torch, ops, cfg, params, S, dev, rehearse)
+    byte_counts, byte_tok_s = phase_byte_pools(
+        torch, ops, cfg, params, S, dev, rehearse, tag="byte ", mix_kernels=("K1", "K2", "K3"),
+        spec_kernel="K4", logits_tol=LOGITS_REL_TOL)
     counts.update(byte_counts)
     del params
     if dev.type == "cuda":
@@ -1578,10 +1716,10 @@ def main(argv) -> int:
         "K3m": ("paged_prefill_attention_batch (MLA mode)", "mla_attend.cu",
                 "kvcached_tpu/ops/paged_prefill.py:344"),
     }
-    # the int8 and e4m3 modes of K1-K4: their launches on phase 9's path
-    # (K1r is on no engine path)
+    # the int8 and e4m3 modes of K1-K4 and of the MLA kernels: their
+    # launches on phase 9's and phase 8 (c)'s paths (K1r is on no engine path)
     modes = {"int8": "int8", "fp8": "float8_e4m3fn"}
-    for k in ("K1", "K1r", "K2", "K3", "K4"):
+    for k in ("K1", "K1r", "K2", "K3", "K4", "K5", "K5v", "K6", "K3m"):
         for tag, mode in modes.items():
             fn, src, replaces = meta[k]
             meta[f"{k} {tag}"] = (f"{fn}, {mode} pool", src, replaces)

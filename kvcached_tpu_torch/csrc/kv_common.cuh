@@ -93,6 +93,20 @@ __device__ __forceinline__ e4m3 store_f<e4m3>(float x, float) {
   return r;
 }
 
+// Four values as a byte pool of P stores them, packed into one 32-bit word
+// (value e in byte e), for 16-byte vector stores of 16 values.
+template <typename P>
+__device__ __forceinline__ uint32_t store4(float4 x, float scale) {
+  const float xs[4] = {x.x, x.y, x.z, x.w};
+  uint32_t w = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const P b = store_f<P>(xs[e], scale);
+    w |= (uint32_t)(*reinterpret_cast<const uint8_t*>(&b)) << (8 * e);
+  }
+  return w;
+}
+
 // The kernels' types around a pool of P: q (Q), the output (Out), the
 // written tokens (New) and the matmul operands (Op).  float32 and bf16
 // pools use their own type throughout; byte pools take bf16 q, float32

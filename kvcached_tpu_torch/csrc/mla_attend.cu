@@ -28,37 +28,59 @@
 //   - output lanes [R, D) are zero (the TPU kernel's accumulator lanes past
 //     v_head_dim stay zero), and a row that sees no key yields zeros.
 //
-// What bounds it on an H100: decode reads each 1280-byte bf16 entry once
-// for all 16 heads (~29 FLOPs a byte): device-memory bytes.  Verify at T=5
-// (80 query rows, ~144 FLOPs a byte) is still under the ~295 FLOP/byte
-// ridge; prefill (T*16 rows a chunk) is bound by tensor-core operations.
+// Byte latent pools (int8, e4m3; the mode the reference runs for int8 and
+// float8_e4m3fn pools):
+//   - a fed entry is stored as the reference stores it: int8
+//     clip(round(x / k_sc), -127, 127) with the layer's K scale k_sc (NaN
+//     as 0), e4m3 the value rounded to nearest even with NaN past 464
+//     (kvc::store_f); q comes in bf16 and the entries in float32;
+//   - the values are the same entries, so k_sc is the only scale: scores
+//     are (q . k) * sm_scale * k_sc, the output is (p . v) * k_sc / l;
+//   - the operands are bf16 (q, the widened entries, the softmax weights)
+//     with float32 accumulation, even for a float32 model, and the output
+//     is float32.
+//
+// What bounds it on an H100: decode reads each 1280-byte bf16 entry (640
+// bytes in a byte pool) once for all 16 heads (~29 FLOPs a byte at bf16):
+// device-memory bytes.  Verify at T=5 (80 query rows, ~144 FLOPs a byte at
+// bf16, ~288 in a byte pool) is still at or under the ~295 FLOP/byte ridge;
+// prefill (T*16 rows a chunk) is bound by tensor-core operations.
 //
 // Design.  One kernel family, grid (chunk row, query tile, key split):
 //   - a block holds up to 64 query rows (M m-tiles of 16, M a template
 //     parameter: 1 for decode, 3 for T=5 verify, 4 for prefill; float32
 //     blocks hold 16) and walks 32-key tiles of its key range.  Each tile
-//     of 640-lane entries is copied once into shared memory (cp.async,
-//     double-buffered: 2 x 41 KB) and used as K (all lanes) and as V (the
-//     first 512): one read for both, the point of the MLA mode;
+//     of 640-lane entries is copied once into shared memory as the pool
+//     stores it (cp.async, double-buffered: 2 x 41 KB at bf16, 2 x 21 KB
+//     for a byte pool) and used as K (all lanes) and as V (the first 512):
+//     one read for both, the point of the MLA mode;
 //   - S = Q K^T on the tensor cores (mma.sync m16n8k16): the M x 4 score
-//     tiles (16 rows x 8 keys) are dealt to the 8 warps, each a 640-deep
-//     product with Q and K fragments read from shared memory, the scaled
-//     and masked scores stored to shared memory;
+//     tiles (16 rows x 8 keys) are dealt to the 8 warps, a warp keeping one
+//     column of 8 keys for its m-tiles, so each K fragment is read (and,
+//     from a byte pool, widened to bf16) once for all of them; each tile is
+//     a 640-deep product, the scaled and masked scores stored to shared
+//     memory;
 //   - online softmax, 4 threads a row, the running max and sum in their
 //     registers; the weights, rounded to bf16, go to shared memory;
 //   - O += P V on the tensor cores, each warp owning 64 of the 512 value
-//     lanes for all M m-tiles (8 * M * 4 accumulators a thread): a 64-row x
-//     512-lane float32 accumulator would be 256 registers a thread at 4
-//     warps.  Splitting the value lanes across warps and sharing P through
-//     shared memory is the public FlashMLA design;
+//     lanes for all M m-tiles (8 * M * 4 accumulators a thread), each V
+//     fragment read (and widened) once for all M: a 64-row x 512-lane
+//     float32 accumulator would be 256 registers a thread at 4 warps.
+//     Splitting the value lanes across warps and sharing P through shared
+//     memory is the public FlashMLA design;
+//   - byte pools keep the double buffer: the raw entries are staged by
+//     cp.async and widened to bf16 only as the fragments are built, from
+//     shared memory;
 //   - float32 pools run the same loop on the CUDA cores, 16 rows a block,
 //     2 value lanes a thread;
 //   - a row's keys split over several blocks (decode, verify: sized by the
-//     wrapper for one wave, kvc_mla_wave_blocks) write (max, sum, acc) partials that a merge
-//     launch combines; a single split (prefill) writes the normalised
-//     output directly.
-// Not yet done: wgmma, a TMA ring, ldmatrix for the fragments, and folding
-// the token store into the attention pass.
+//     wrapper for one wave, kvc_mla_wave_blocks) write (max, sum, acc)
+//     partials that a merge launch combines; a single split (prefill) writes
+//     the normalised output directly.
+// Not yet done: wgmma, a TMA ring, ldmatrix for the fragments, native byte
+// operands, and folding the token store into the attention pass.
+#include <type_traits>
+
 #include "kv_common.cuh"
 
 namespace {
@@ -71,20 +93,28 @@ constexpr int R = 512;             // value lanes (ops MLA_V_DIM)
 constexpr int THREADS = 256;       // 8 warps
 constexpr int WARPS = THREADS / 32;
 constexpr int KT = 32;             // keys per tile (ops MLA_KEY_TILE)
-constexpr int MAX_ROWS = 64;       // query rows per bf16 block (ops MLA_ROWS)
+constexpr int MAX_ROWS = 64;       // query rows per tensor-core block (ops MLA_ROWS)
 constexpr int F32_ROWS = 16;       // query rows per float32 block
 constexpr int LD = D + 8;          // bf16 smem row: rows 4 banks apart
+constexpr int LDB = D + 16;        // byte smem key row: rows 4 banks apart, 16-byte aligned
 constexpr int F_LD = D + 1;        // float32 smem key row
 constexpr int S_LD = KT + 1;       // score row (floats)
 constexpr int P_LD = KT + 8;       // softmax weight row (bf16)
 constexpr int VL = R / WARPS;      // value lanes a warp owns (bf16)
 constexpr int TPR = 4;             // softmax threads a row
 constexpr int KPT = KT / TPR;      // keys a softmax thread handles
+constexpr int NT = KT / 8;         // score tile columns (8 keys each)
+constexpr int MSTEP = WARPS / NT;  // m-tiles between a warp's score tiles
 constexpr int WRITE_THREADS = 128;
 constexpr int MERGE_THREADS = 128;  // 4 value lanes a thread
 
 static_assert(R % (WARPS * 8) == 0 && D % 16 == 0 && KT % 16 == 0, "tile shapes");
 static_assert(MAX_ROWS * TPR <= THREADS, "softmax threads");
+static_assert(WARPS % NT == 0, "score tiles: a warp keeps one key column");
+
+// Elements of a shared-memory key row of pool type P.
+template <typename P>
+constexpr int KEY_LD = sizeof(P) == 1 ? LDB : LD;
 
 // Position of the first query of chunk row n, and its key limit.
 __device__ __forceinline__ void row_geometry(const int* q_starts, const int* kv_lens,
@@ -106,21 +136,32 @@ __device__ __forceinline__ void tile_keys(int qbase, int klim, int H, int rows,
   hi = min(min(klim, qbase + last / H + 1), lo + split);
 }
 
-// Store the fed tokens' latent entries.  One block per fed token.
-template <typename T>
+// Store the fed tokens' latent entries, one block per fed token: copied for
+// float32 and bf16 pools, quantized from float32 for byte pools (k_sc: the
+// layer's int8 K scale, 1 without scales).
+template <typename P>
 __global__ void __launch_bounds__(WRITE_THREADS) mla_write_kernel(
-    const T* __restrict__ k_new,          // [N*Tq, D]
-    T* __restrict__ pool,                 // [L, P, 1, TP, D]
+    const typename Types<P>::New* __restrict__ k_new,  // [N*Tq, D]
+    P* __restrict__ pool,                 // [L, P, 1, TP, D]
     const int* __restrict__ slot_pages,   // [N*Tq]
-    const int* __restrict__ slot_offsets, int layer, int num_pages, int TP) {
+    const int* __restrict__ slot_offsets, const float* __restrict__ k_scales,
+    int layer, int num_pages, int TP) {
   const int i = blockIdx.x;
   const int page = slot_pages[i];
   if (page == 0) return;  // the zero page: discard
-  constexpr int NV = D * sizeof(T) / 16;
   const size_t dst = (((size_t)layer * num_pages + page) * TP + slot_offsets[i]) * D;
-  const uint4* src = reinterpret_cast<const uint4*>(k_new + (size_t)i * D);
-  for (int v = threadIdx.x; v < NV; v += WRITE_THREADS)
-    reinterpret_cast<uint4*>(pool + dst)[v] = src[v];
+  uint4* to = reinterpret_cast<uint4*>(pool + dst);
+  if constexpr (sizeof(P) == 1) {
+    const float k_sc = k_scales ? k_scales[layer] : 1.f;
+    const float4* src = reinterpret_cast<const float4*>(k_new + (size_t)i * D);
+    for (int v = threadIdx.x; v < D / 16; v += WRITE_THREADS)
+      to[v] = make_uint4(store4<P>(src[4 * v], k_sc), store4<P>(src[4 * v + 1], k_sc),
+                         store4<P>(src[4 * v + 2], k_sc), store4<P>(src[4 * v + 3], k_sc));
+  } else {
+    constexpr int NV = D * sizeof(P) / 16;
+    const uint4* src = reinterpret_cast<const uint4*>(k_new + (size_t)i * D);
+    for (int v = threadIdx.x; v < NV; v += WRITE_THREADS) to[v] = src[v];
+  }
 }
 
 // One softmax step over a tile: thread (row srow, part spart) takes keys
@@ -155,17 +196,22 @@ __device__ __forceinline__ float softmax_step(const float* s_row, int spart, flo
   return alpha;
 }
 
-// Copy one KT-key tile of entries into k_s as one cp.async group; rows past
-// nk are zeroed (their weights are 0, and 0 * NaN would not be).
-__device__ __forceinline__ void copy_tile(bf16* k_s, const bf16* __restrict__ pool,
+// Copy one KT-key tile of entries into k_s as one cp.async group, as the
+// pool stores them (rows of KEY_LD<P> elements); rows past nk are zeroed
+// (their weights are 0, and 0 * NaN would not be).
+template <typename P>
+__device__ __forceinline__ void copy_tile(P* k_s, const P* __restrict__ pool,
                                           const int* __restrict__ row_pages,
                                           size_t lbase, int TP, int t0, int nk,
                                           int tid) {
+  constexpr int CH = D * (int)sizeof(P) / 16;  // 16-byte chunks an entry
+  constexpr int EL = 16 / (int)sizeof(P);      // elements a chunk
+  static_assert(KT * CH % THREADS == 0, "copy map");
 #pragma unroll
-  for (int u = 0; u < KT * (D / 8) / THREADS; ++u) {
+  for (int u = 0; u < KT * CH / THREADS; ++u) {
     const int idx = tid + u * THREADS;
-    const int kr = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    bf16* dst = k_s + kr * LD + c;
+    const int kr = idx / CH, c = (idx % CH) * EL;
+    P* dst = k_s + kr * KEY_LD<P> + c;
     if (kr < nk) {
       const int pos = t0 + kr;
       cp_async16(dst, pool + lbase + ((size_t)row_pages[pos / TP] * TP + pos % TP) * D + c);
@@ -176,43 +222,82 @@ __device__ __forceinline__ void copy_tile(bf16* k_s, const bf16* __restrict__ po
   cp_async_commit();
 }
 
-// c += the 16-lane slice [c0, c0 + 16) of Q K^T for one (16-row, 8-key)
-// score tile: qa at this lane's row gq and column 2 tq of the m-tile in
-// q_s, kb at its key gq and column 2 tq of the n-tile in k_s.
-__device__ __forceinline__ void score_step(float (&c)[4], const bf16* qa, const bf16* kb,
-                                           int c0) {
-  const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(qa + c0),
-                         *reinterpret_cast<const uint32_t*>(qa + 8 * LD + c0),
-                         *reinterpret_cast<const uint32_t*>(qa + c0 + 8),
-                         *reinterpret_cast<const uint32_t*>(qa + 8 * LD + c0 + 8)};
-  mma_bf16(c, a, *reinterpret_cast<const uint32_t*>(kb + c0),
-           *reinterpret_cast<const uint32_t*>(kb + c0 + 8));
+// B-fragment word of two neighbouring lanes (p[0] low, p[1] high) of one key
+// row, as bf16: widened from a byte pool (int8 and e4m3 values are exact in
+// bf16).
+template <typename P>
+__device__ __forceinline__ uint32_t key_pair(const P* p);
+template <>
+__device__ __forceinline__ uint32_t key_pair<bf16>(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+template <>
+__device__ __forceinline__ uint32_t key_pair<int8_t>(const int8_t* p) {
+  const uint32_t w = *reinterpret_cast<const uint16_t*>(p);
+  return pack_bf16(byte_f<int8_t>(w, 0), byte_f<int8_t>(w, 1));
+}
+template <>
+__device__ __forceinline__ uint32_t key_pair<e4m3>(const e4m3* p) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      *reinterpret_cast<const __nv_fp8x2_storage_t*>(p), __NV_E4M3);
+  const float2 f = __half22float2(__half2(h));
+  return pack_bf16(f.x, f.y);
 }
 
-template <int M>
+// B-fragment word of one lane of two key rows (lo low, hi high), as bf16.
+template <typename P>
+__device__ __forceinline__ uint32_t lane_pair(const P* lo, const P* hi) {
+  if constexpr (std::is_same<P, bf16>::value) {
+    return pack_halves(lo, hi);
+  } else {
+    return pack_bf16(to_f<P>(*lo), to_f<P>(*hi));
+  }
+}
+
+// A fragment of Q's 16-lane slice [c0, c0 + 16) at this lane's row gq and
+// column 2 tq of an m-tile in q_s.
+__device__ __forceinline__ void q_frag(uint32_t (&a)[4], const bf16* qa, int c0) {
+  a[0] = *reinterpret_cast<const uint32_t*>(qa + c0);
+  a[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * LD + c0);
+  a[2] = *reinterpret_cast<const uint32_t*>(qa + c0 + 8);
+  a[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * LD + c0 + 8);
+}
+
+// two output values of one row at o (o[0], o[1])
+__device__ __forceinline__ void store2(bf16* o, float a, float b) {
+  *reinterpret_cast<uint32_t*>(o) = pack_bf16(a, b);
+}
+__device__ __forceinline__ void store2(float* o, float a, float b) {
+  *reinterpret_cast<float2*>(o) = make_float2(a, b);
+}
+
+template <int M, typename P>
 constexpr size_t mma_smem_bytes() {
-  return sizeof(bf16) * (16 * M * LD + 2 * KT * LD + 16 * M * P_LD) +
+  return sizeof(bf16) * (16 * M * LD + 16 * M * P_LD) + sizeof(P) * 2 * KT * KEY_LD<P> +
          sizeof(float) * (16 * M * S_LD + 16 * M);
 }
 
-// Attention pass, bfloat16 pools: M m-tiles of query rows on the tensor cores.
-template <int M>
+// Attention pass on the tensor cores, bf16 and byte pools: M m-tiles of
+// query rows.
+template <int M, typename P>
 __global__ void __launch_bounds__(THREADS) mla_attend_mma_kernel(
     const bf16* __restrict__ q,            // [N, rows, D]
-    const bf16* __restrict__ pool,         // [L, P, 1, TP, D]
+    const P* __restrict__ pool,            // [L, P, 1, TP, D]
     const int* __restrict__ page_tables,   // [N, maxp]
     const int* __restrict__ q_starts,      // [N] or null
     const int* __restrict__ kv_lens,       // [N]
-    bf16* __restrict__ out,                // [N, rows, D] (a single split)
+    const float* __restrict__ k_scales,    // [L] int8 K scales, or null
+    typename Types<P>::Out* __restrict__ out,  // [N, rows, D] (a single split)
     float* __restrict__ part_acc,          // [N, S, rows, R] (several splits)
     float* __restrict__ part_ml,           // [N, S, rows, 2]
     int layer, int num_pages, int TP, int maxp, int Tq, int H, int split,
     float sm_scale) {
-  constexpr int QR = 16 * M;
+  constexpr int QR = 16 * M, KL = KEY_LD<P>;
+  constexpr int MW = (M + MSTEP - 1) / MSTEP;  // m-tiles a warp scores, at most
   extern __shared__ uint4 smem_raw[];
   bf16* const q_s = reinterpret_cast<bf16*>(smem_raw);               // [QR][LD]
-  bf16* const k_buf = q_s + QR * LD;                                 // [2][KT][LD]
-  bf16* const p_s = k_buf + 2 * KT * LD;                             // [QR][P_LD]
+  P* const k_buf = reinterpret_cast<P*>(q_s + QR * LD);              // [2][KT][KL]
+  bf16* const p_s = reinterpret_cast<bf16*>(k_buf + 2 * KT * KL);    // [QR][P_LD]
   float* const s_s = reinterpret_cast<float*>(p_s + QR * P_LD);      // [QR][S_LD]
   float* const a_s = s_s + QR * S_LD;                                // [QR]
 
@@ -224,10 +309,11 @@ __global__ void __launch_bounds__(THREADS) mla_attend_mma_kernel(
   row_geometry(q_starts, kv_lens, n, Tq, maxp * TP, qbase, klim);
   tile_keys(qbase, klim, H, rows, QR, z, split, sp, lo, hi);
   if (lo >= hi && S > 1) return;  // an empty split: the merge skips it
+  const float k_sc = k_scales ? k_scales[layer] : 1.f;
 
   const int* row_pages = page_tables + (size_t)n * maxp;
   const size_t lbase = (size_t)layer * num_pages * TP * D;
-  if (lo < hi) copy_tile(k_buf, pool, row_pages, lbase, TP, lo, min(KT, hi - lo), tid);
+  if (lo < hi) copy_tile<P>(k_buf, pool, row_pages, lbase, TP, lo, min(KT, hi - lo), tid);
   const bf16* qrow = q + ((size_t)n * rows + r0) * D;
   for (int i = tid; i < QR * (D / 8); i += THREADS) {
     const int r = i / (D / 8), c = (i % (D / 8)) * 8;
@@ -243,38 +329,61 @@ __global__ void __launch_bounds__(THREADS) mla_attend_mma_kernel(
     for (int j = 0; j < VL / 8; ++j) o[mt][j][0] = o[mt][j][1] = o[mt][j][2] = o[mt][j][3] = 0.f;
   const int srow = tid / TPR, spart = tid % TPR;  // this thread's softmax row
   float m_run = -INFINITY, l_run = 0.f;
+  // this warp's score tiles: key column nt of m-tiles mt0, mt0 + MSTEP, ...
+  const int nt = warp % NT, mt0 = warp / NT;
 
   for (int t0 = lo, buf = 0; t0 < hi; t0 += KT, buf ^= 1) {
     const int nk = min(KT, hi - t0);
     // the next tile's copies fly during this tile's math; the other buffer
     // was released by the barrier that ended the previous tile
     if (t0 + KT < hi) {
-      copy_tile(k_buf + (buf ^ 1) * KT * LD, pool, row_pages, lbase, TP, t0 + KT,
-                min(KT, hi - t0 - KT), tid);
+      copy_tile<P>(k_buf + (buf ^ 1) * KT * KL, pool, row_pages, lbase, TP, t0 + KT,
+                   min(KT, hi - t0 - KT), tid);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();  // this tile (and, the first time, q_s) landed
-    const bf16* k_s = k_buf + buf * KT * LD;
+    const P* k_s = k_buf + buf * KT * KL;
 
-    // 1. S = Q K^T, one (16-row, 8-key) score tile per warp and turn; two
-    //    accumulators halve the dependent mma chain
-    for (int pair = warp; pair < M * (KT / 8); pair += WARPS) {
-      const int mt = pair / (KT / 8), nt = pair % (KT / 8);
-      const bf16* qa = q_s + (mt * 16 + gq) * LD + 2 * tq;
-      const bf16* kb = k_s + (nt * 8 + gq) * LD + 2 * tq;
-      float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+    // 1. S = Q K^T: each K fragment serves the warp's m-tiles; two
+    //    accumulators a tile halve the dependent mma chain.  A warp without
+    //    an m-tile (half of them at M = 1) skips the loop and its K loads,
+    //    which otherwise slow decode on an H100 (PERF.md §6)
+    if (mt0 < M) {
+      float c[MW][2][4];
+#pragma unroll
+      for (int i = 0; i < MW; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[i][0][e] = c[i][1][e] = 0.f;
+      const P* kb = k_s + (nt * 8 + gq) * KL + 2 * tq;
 #pragma unroll 4
       for (int ks = 0; ks < D / 16; ks += 2) {
-        score_step(c0, qa, kb, ks * 16);
-        score_step(c1, qa, kb, ks * 16 + 16);
+        const uint32_t b0 = key_pair<P>(kb + ks * 16), b1 = key_pair<P>(kb + ks * 16 + 8);
+        const uint32_t b2 = key_pair<P>(kb + ks * 16 + 16), b3 = key_pair<P>(kb + ks * 16 + 24);
+#pragma unroll
+        for (int i = 0; i < MW; ++i) {
+          const int mt = mt0 + MSTEP * i;
+          if (mt < M) {
+            const bf16* qa = q_s + (mt * 16 + gq) * LD + 2 * tq;
+            uint32_t a[4];
+            q_frag(a, qa, ks * 16);
+            mma_bf16(c[i][0], a, b0, b1);
+            q_frag(a, qa, ks * 16 + 16);
+            mma_bf16(c[i][1], a, b2, b3);
+          }
+        }
       }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = mt * 16 + gq + 8 * (e / 2), col = nt * 8 + 2 * tq + (e % 2);
-        const bool ok = row < nrows && col < nk && t0 + col <= qbase + (r0 + row) / H;
-        s_s[row * S_LD + col] = ok ? (c0[e] + c1[e]) * sm_scale : -INFINITY;
+      for (int i = 0; i < MW; ++i) {
+        const int mt = mt0 + MSTEP * i;
+        if (mt >= M) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = mt * 16 + gq + 8 * (e / 2), col = nt * 8 + 2 * tq + (e % 2);
+          const bool ok = row < nrows && col < nk && t0 + col <= qbase + (r0 + row) / H;
+          s_s[row * S_LD + col] = ok ? (c[i][0][e] + c[i][1][e]) * sm_scale * k_sc : -INFINITY;
+        }
       }
     }
     __syncthreads();
@@ -288,7 +397,8 @@ __global__ void __launch_bounds__(THREADS) mla_attend_mma_kernel(
     }
     __syncthreads();
 
-    // 3. O = O * alpha + P V over this warp's 64 value lanes
+    // 3. O = O * alpha + P V over this warp's 64 value lanes; each V
+    //    fragment serves all M m-tiles
 #pragma unroll
     for (int mt = 0; mt < M; ++mt) {
       const float a0 = a_s[mt * 16 + gq], a1 = a_s[mt * 16 + gq + 8];
@@ -299,20 +409,25 @@ __global__ void __launch_bounds__(THREADS) mla_attend_mma_kernel(
         o[mt][dn][2] *= a1;
         o[mt][dn][3] *= a1;
       }
+    }
 #pragma unroll
-      for (int j = 0; j < KT / 16; ++j) {
+    for (int j = 0; j < KT / 16; ++j) {
+      uint32_t pa[M][4];
+#pragma unroll
+      for (int mt = 0; mt < M; ++mt) {
         const bf16* pr = p_s + (mt * 16 + gq) * P_LD + j * 16 + 2 * tq;
-        const uint32_t pa[4] = {*reinterpret_cast<const uint32_t*>(pr),
-                                *reinterpret_cast<const uint32_t*>(pr + 8 * P_LD),
-                                *reinterpret_cast<const uint32_t*>(pr + 8),
-                                *reinterpret_cast<const uint32_t*>(pr + 8 * P_LD + 8)};
-        const bf16* vr = k_s + (j * 16 + 2 * tq) * LD + warp * VL + gq;
+        pa[mt][0] = *reinterpret_cast<const uint32_t*>(pr);
+        pa[mt][1] = *reinterpret_cast<const uint32_t*>(pr + 8 * P_LD);
+        pa[mt][2] = *reinterpret_cast<const uint32_t*>(pr + 8);
+        pa[mt][3] = *reinterpret_cast<const uint32_t*>(pr + 8 * P_LD + 8);
+      }
+      const P* vr = k_s + (j * 16 + 2 * tq) * KL + warp * VL + gq;
 #pragma unroll
-        for (int dn = 0; dn < VL / 8; ++dn) {
-          const bf16* v = vr + dn * 8;
-          mma_bf16(o[mt][dn], pa, pack_halves(v, v + LD),
-                   pack_halves(v + 8 * LD, v + 9 * LD));
-        }
+      for (int dn = 0; dn < VL / 8; ++dn) {
+        const P* v = vr + dn * 8;
+        const uint32_t b0 = lane_pair<P>(v, v + KL), b1 = lane_pair<P>(v + 8 * KL, v + 9 * KL);
+#pragma unroll
+        for (int mt = 0; mt < M; ++mt) mma_bf16(o[mt][dn], pa[mt], b0, b1);
       }
     }
     __syncthreads();  // this buffer, s_s and p_s are consumed
@@ -334,17 +449,15 @@ __global__ void __launch_bounds__(THREADS) mla_attend_mma_kernel(
       const float l = s_s[row * S_LD + 1];
       if (S == 1) {
         const float inv = 1.f / (l == 0.f ? 1.f : l);
-        bf16* orow = out + ((size_t)n * rows + r0 + row) * D + warp * VL + 2 * tq;
+        auto* orow = out + ((size_t)n * rows + r0 + row) * D + warp * VL + 2 * tq;
 #pragma unroll
         for (int dn = 0; dn < VL / 8; ++dn)
-          *reinterpret_cast<uint32_t*>(orow + dn * 8) =
-              pack_bf16(o[mt][dn][2 * i] * inv, o[mt][dn][2 * i + 1] * inv);
+          store2(orow + dn * 8, o[mt][dn][2 * i] * k_sc * inv, o[mt][dn][2 * i + 1] * k_sc * inv);
       } else {
         float* acc = part_acc + (prow + row) * R + warp * VL + 2 * tq;
 #pragma unroll
         for (int dn = 0; dn < VL / 8; ++dn)
-          *reinterpret_cast<float2*>(acc + dn * 8) =
-              make_float2(o[mt][dn][2 * i], o[mt][dn][2 * i + 1]);
+          store2(acc + dn * 8, o[mt][dn][2 * i] * k_sc, o[mt][dn][2 * i + 1] * k_sc);
         if (warp == 0 && tq == 0) {
           part_ml[2 * (prow + row)] = s_s[row * S_LD];
           part_ml[2 * (prow + row) + 1] = l;
@@ -353,9 +466,10 @@ __global__ void __launch_bounds__(THREADS) mla_attend_mma_kernel(
     }
   }
   if (S == 1) {  // lanes past the values are zero
-    for (int i = tid; i < nrows * (D - R) / 8; i += THREADS) {
-      const int r = i / ((D - R) / 8), c = R + (i % ((D - R) / 8)) * 8;
-      *reinterpret_cast<uint4*>(out + ((size_t)n * rows + r0 + r) * D + c) =
+    constexpr int ZV = (D - R) * (int)sizeof(typename Types<P>::Out) / 16;  // a row's 16-byte stores
+    for (int i = tid; i < nrows * ZV; i += THREADS) {
+      const int r = i / ZV, c = i % ZV;
+      reinterpret_cast<uint4*>(out + ((size_t)n * rows + r0 + r) * D + R)[c] =
           make_uint4(0, 0, 0, 0);
     }
   }
@@ -526,6 +640,7 @@ __global__ void __launch_bounds__(MERGE_THREADS) mla_merge_kernel(
 
 struct Args {
   const void *q, *pool, *page_tables, *q_starts, *kv_lens;
+  const float* k_scales;
   void *out;
   float *part_acc, *part_ml;
   int layer, num_pages, TP, maxp, Tq, H, split;
@@ -533,13 +648,13 @@ struct Args {
 };
 
 // Allow each attention kernel its dynamic shared memory (above 48 KB), once.
-template <int M>
-cudaError_t configure_bf16() {
+template <int M, typename P>
+cudaError_t configure_mma() {
   static bool done = false;
   if (done) return cudaSuccess;
   const cudaError_t e = cudaFuncSetAttribute(
-      mla_attend_mma_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)mma_smem_bytes<M>());
+      mla_attend_mma_kernel<M, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)mma_smem_bytes<M, P>());
   done = e == cudaSuccess;
   return e;
 }
@@ -567,14 +682,38 @@ int wave_blocks(cudaError_t e, K kernel, size_t smem, int* blocks) {
   return (int)e;
 }
 
-template <int M>
-int attend_bf16(dim3 grid, const Args& a, cudaStream_t stream) {
-  const cudaError_t e = configure_bf16<M>();
+// f(tag) with a value of the pool type of dtype code `dtype`.
+template <typename F>
+int with_pool_type(int dtype, F f) {
+  switch (dtype) {
+    case kF32: return f(float{});
+    case kBF16: return f(bf16{});
+    case kI8: return f(int8_t{});
+    case kE4M3: return f(e4m3{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// f(std::integral_constant<int, M>) for qrows = 16 M query rows a block.
+template <typename F>
+int with_m_tiles(int qrows, F f) {
+  switch (qrows / 16) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    default: return f(std::integral_constant<int, 4>{});
+  }
+}
+
+template <int M, typename P>
+int attend_mma(dim3 grid, const Args& a, cudaStream_t stream) {
+  const cudaError_t e = configure_mma<M, P>();
   if (e != cudaSuccess) return (int)e;
-  mla_attend_mma_kernel<M><<<grid, THREADS, mma_smem_bytes<M>(), stream>>>(
-      (const bf16*)a.q, (const bf16*)a.pool, (const int*)a.page_tables,
-      (const int*)a.q_starts, (const int*)a.kv_lens, (bf16*)a.out, a.part_acc,
-      a.part_ml, a.layer, a.num_pages, a.TP, a.maxp, a.Tq, a.H, a.split, a.sm_scale);
+  mla_attend_mma_kernel<M, P><<<grid, THREADS, mma_smem_bytes<M, P>(), stream>>>(
+      (const bf16*)a.q, (const P*)a.pool, (const int*)a.page_tables,
+      (const int*)a.q_starts, (const int*)a.kv_lens, a.k_scales,
+      (typename Types<P>::Out*)a.out, a.part_acc, a.part_ml, a.layer, a.num_pages, a.TP,
+      a.maxp, a.Tq, a.H, a.split, a.sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -588,13 +727,14 @@ int attend_f32(dim3 grid, const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename P>
 int launch(const Args& a, const void* k_new, const void* slot_pages,
            const void* slot_offsets, int N, int qrows, cudaStream_t stream) {
+  using Out = typename Types<P>::Out;
   if (k_new) {
-    mla_write_kernel<T><<<N * a.Tq, WRITE_THREADS, 0, stream>>>(
-        (const T*)k_new, (T*)a.pool, (const int*)slot_pages, (const int*)slot_offsets,
-        a.layer, a.num_pages, a.TP);
+    mla_write_kernel<P><<<N * a.Tq, WRITE_THREADS, 0, stream>>>(
+        (const typename Types<P>::New*)k_new, (P*)a.pool, (const int*)slot_pages,
+        (const int*)slot_offsets, a.k_scales, a.layer, a.num_pages, a.TP);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -602,19 +742,14 @@ int launch(const Args& a, const void* k_new, const void* slot_pages,
   const int S = width > a.split ? (width + a.split - 1) / a.split : 1;
   const dim3 grid(N, (rows + qrows - 1) / qrows, S);
   int rc;
-  if (sizeof(T) == 4) {
+  if constexpr (std::is_same<P, float>::value) {
     rc = attend_f32(grid, a, stream);
   } else {
-    switch (qrows / 16) {
-      case 1: rc = attend_bf16<1>(grid, a, stream); break;
-      case 2: rc = attend_bf16<2>(grid, a, stream); break;
-      case 3: rc = attend_bf16<3>(grid, a, stream); break;
-      default: rc = attend_bf16<4>(grid, a, stream); break;
-    }
+    rc = with_m_tiles(qrows, [&](auto m) { return attend_mma<decltype(m)::value, P>(grid, a, stream); });
   }
   if (rc != 0 || S == 1) return rc;
-  mla_merge_kernel<T><<<dim3(N, rows), MERGE_THREADS, 0, stream>>>(
-      a.part_acc, a.part_ml, (const int*)a.q_starts, (const int*)a.kv_lens, (T*)a.out,
+  mla_merge_kernel<Out><<<dim3(N, rows), MERGE_THREADS, 0, stream>>>(
+      a.part_acc, a.part_ml, (const int*)a.q_starts, (const int*)a.kv_lens, (Out*)a.out,
       a.Tq, a.H, width, qrows, a.split, S);
   return (int)cudaGetLastError();
 }
@@ -629,52 +764,48 @@ bool valid_rows(bool f32, int qrows) {
 // device runs at once; the wrapper sizes the key split of decode and
 // verify for one such wave.
 extern "C" int kvc_mla_wave_blocks(int dtype, int qrows, int* blocks) {
-  const bool f32 = dtype == kvc::kF32;
-  if (!valid_rows(f32, qrows) || (!f32 && dtype != kvc::kBF16))
-    return (int)cudaErrorInvalidValue;
-  if (f32) return wave_blocks(configure_f32(), mla_attend_f32_kernel, kF32Smem, blocks);
-  switch (qrows / 16) {
-    case 1:
-      return wave_blocks(configure_bf16<1>(), mla_attend_mma_kernel<1>, mma_smem_bytes<1>(),
-                         blocks);
-    case 2:
-      return wave_blocks(configure_bf16<2>(), mla_attend_mma_kernel<2>, mma_smem_bytes<2>(),
-                         blocks);
-    case 3:
-      return wave_blocks(configure_bf16<3>(), mla_attend_mma_kernel<3>, mma_smem_bytes<3>(),
-                         blocks);
-    default:
-      return wave_blocks(configure_bf16<4>(), mla_attend_mma_kernel<4>, mma_smem_bytes<4>(),
-                         blocks);
-  }
+  if (!valid_rows(dtype == kvc::kF32, qrows)) return (int)cudaErrorInvalidValue;
+  return with_pool_type(dtype, [&](auto tag) -> int {
+    using P = decltype(tag);
+    if constexpr (std::is_same<P, float>::value) {
+      return wave_blocks(configure_f32(), mla_attend_f32_kernel, kF32Smem, blocks);
+    } else {
+      return with_m_tiles(qrows, [&](auto m) {
+        constexpr int M = decltype(m)::value;
+        return wave_blocks(configure_mma<M, P>(), mla_attend_mma_kernel<M, P>,
+                           mma_smem_bytes<M, P>(), blocks);
+      });
+    }
+  });
 }
 
-// q, out [N, Tq, H, D]; pool [L, P, 1, TP, D]; q_starts null for decode /
-// verify rows; k_new [N, Tq, D] with slot_pages / slot_offsets [N, Tq], or
-// all three null (no write).  qrows: query rows a block (a multiple of 16
-// up to 64 for bf16, 16 for float32).  split: keys a block, a multiple of
-// 32; with S = ceil(maxp * TP / split) > 1 splits, scratch holds
-// N * S * Tq * H * (R + 2) floats (the wrapper allocates it).
+// dtype: the pool's code (kvc::DType).  q, out [N, Tq, H, D] (q bf16 and
+// out float32 for byte pools, else the pool's type); pool [L, P, 1, TP, D];
+// q_starts null for decode / verify rows; k_new [N, Tq, D] (float32 for
+// byte pools) with slot_pages / slot_offsets [N, Tq], or all three null (no
+// write); k_scales the int8 pool's [L] K scales, or null (ones).  qrows:
+// query rows a block (a multiple of 16 up to 64 on the tensor cores, 16
+// for float32).  split: keys a block, a multiple of 32; with S = ceil(maxp
+// * TP / split) > 1 splits, scratch holds N * S * Tq * H * (R + 2) floats
+// (the wrapper allocates it).
 extern "C" int kvc_mla_attend(
     int dtype, const void* q, void* pool, const void* page_tables,
     const void* q_starts, const void* kv_lens, const void* k_new,
-    const void* slot_pages, const void* slot_offsets, void* out, void* scratch,
-    int N, int Tq, int H, int layer, int num_pages, int TP, int maxp, int qrows,
-    int split, float sm_scale, void* stream) {
+    const void* slot_pages, const void* slot_offsets, const float* k_scales, void* out,
+    void* scratch, int N, int Tq, int H, int layer, int num_pages, int TP, int maxp,
+    int qrows, int split, float sm_scale, void* stream) {
   if (Tq < 1 || H < 1 || maxp < 1 || split < KT || split % KT) return (int)cudaErrorInvalidValue;
-  const bool f32 = dtype == kvc::kF32;
-  if (!valid_rows(f32, qrows)) return (int)cudaErrorInvalidValue;
+  if (!valid_rows(dtype == kvc::kF32, qrows)) return (int)cudaErrorInvalidValue;
   const int S = maxp * TP > split ? (maxp * TP + split - 1) / split : 1;
   if (S > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   const size_t part_rows = (size_t)N * S * Tq * H;
   float* part_acc = (float*)scratch;  // first: vector stores stay aligned
-  Args a{q, pool, page_tables, q_starts, kv_lens, out, part_acc,
+  Args a{q, pool, page_tables, q_starts, kv_lens, k_scales, out, part_acc,
          part_acc ? part_acc + part_rows * R : nullptr,
          layer, num_pages, TP, maxp, Tq, H, split, sm_scale};
   cudaStream_t s = (cudaStream_t)stream;
-  if (f32) return launch<float>(a, k_new, slot_pages, slot_offsets, N, qrows, s);
-  if (dtype == kvc::kBF16)
-    return launch<bf16>(a, k_new, slot_pages, slot_offsets, N, qrows, s);
-  return (int)cudaErrorInvalidValue;
+  return with_pool_type(dtype, [&](auto tag) {
+    return launch<decltype(tag)>(a, k_new, slot_pages, slot_offsets, N, qrows, s);
+  });
 }

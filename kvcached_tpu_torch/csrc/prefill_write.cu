@@ -16,7 +16,9 @@
 // float32 and each value is quantized in the same pass, as the reference's
 // write_prefill_kv does before its copy (int8: clip(round(x / scale),
 // -127, 127) with head h's scale; e4m3: round to nearest even, NaN past
-// 464), so the pool bytes equal the reference's.
+// 464), so the pool bytes equal the reference's.  K6 into a byte latent
+// pool is the same entry with null V pointers (the reference's
+// write_prefill_kv_single quantizes with the latent's K scale).
 //
 // What bounds it on an H100: device-memory bytes (one read and one write of
 // each element, no arithmetic).  Design: one block per (chunk, kv head),
@@ -49,7 +51,7 @@ __global__ void __launch_bounds__(THREADS) prefill_write_kernel(
 }
 
 // K2 into a byte pool of P: thread i quantizes 16 float32 values (four
-// float4 loads) into one 16-byte store.
+// float4 loads) into one 16-byte store.  v_pool null: K6, no V.
 template <typename P>
 __global__ void __launch_bounds__(THREADS) prefill_write_quant_kernel(
     const float4* __restrict__ k_new,  // [KH, n_chunks, slab] float32
@@ -70,22 +72,12 @@ __global__ void __launch_bounds__(THREADS) prefill_write_quant_kernel(
   for (int i = threadIdx.x; i < slab_vec; i += THREADS) {
 #pragma unroll
     for (int kv = 0; kv < 2; ++kv) {
+      if (kv && !v_pool) break;
       const float4* in = (kv ? v_new : k_new) + src + (size_t)i * 4;
       const float sc = kv ? vsc : ksc;
-      uint32_t w[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float4 x = in[c];
-        const float xs[4] = {x.x, x.y, x.z, x.w};
-        uint32_t word = 0;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const P b = kvc::store_f<P>(xs[e], sc);
-          word |= (uint32_t)(*reinterpret_cast<const uint8_t*>(&b)) << (8 * e);
-        }
-        w[c] = word;
-      }
-      (kv ? v_pool : k_pool)[dst + i] = make_uint4(w[0], w[1], w[2], w[3]);
+      (kv ? v_pool : k_pool)[dst + i] =
+          make_uint4(kvc::store4<P>(in[0], sc), kvc::store4<P>(in[1], sc),
+                     kvc::store4<P>(in[2], sc), kvc::store4<P>(in[3], sc));
     }
   }
 }
@@ -117,7 +109,8 @@ extern "C" int kvc_prefill_write(const void* k_new, const void* v_new,
 
 // K2 into an int8 (dtype 2) or e4m3 (dtype 3) pool: k_new / v_new are
 // float32 [KH, n_chunks * TP, D], slab_elems = TP * D (a multiple of 16),
-// k_scale / v_scale the layer's [KH] int8 scales (null for e4m3).
+// k_scale / v_scale the layer's [KH] int8 scales (null for e4m3).  K6 into
+// a byte latent pool passes null v_new, v_pool and v_scale.
 extern "C" int kvc_prefill_write_quant(int dtype, const void* k_new,
                                        const void* v_new, void* k_pool,
                                        void* v_pool, const void* pages,

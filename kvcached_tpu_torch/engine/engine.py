@@ -309,9 +309,6 @@ class LLMEngine:
             raise NotImplementedError(
                 f"kv_dtype={ec.kv_dtype!r} is not ported yet "
                 "(bfloat16, float32, int8, float8_e4m3fn)")
-        if ec.kv_dtype in ("int8", "float8_e4m3fn") and self.adapter.num_kv_buffers == 1:
-            raise NotImplementedError(
-                f"kv_dtype={ec.kv_dtype!r} for the MLA latent pool is not ported yet")
         if ec.spec_decode:
             dt = str(self.adapter.cfg.dtype)
             if ec.spec_exact and (dt != "float32" or ec.kv_dtype != "float32"):
@@ -354,7 +351,8 @@ class LLMEngine:
         self.pool = DevicePagePool(spec, device=self.device)
         self.k_pools, self.v_pools = self.pool.allocate_arrays()
         #: int8 pools: per-(layer, kv head) dequantization scales [L, KH]
-        #: for K and V, each ``kv_scale`` until set_kv_scales()
+        #: for K and V, each ``kv_scale`` until set_kv_scales(); the MLA
+        #: latent pool has one kv head, and its K scales serve the values
         self.quant_scales = None
         if ec.kv_dtype == "int8":
             shape = (self.kv_cfg.num_layers, self.kv_cfg.num_kv_heads)

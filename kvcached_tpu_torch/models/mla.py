@@ -17,6 +17,12 @@ layer axis under the JAX package's names; the forward passes are plain
 functions over it with a Python loop over layers.  The projections, the
 absorb and out-projection einsums (in float32, as the JAX package does them)
 and the MLP are ``torch.matmul``.
+
+Byte latent pools (int8, float8_e4m3fn) take the queries and entries in
+the model's type, unquantized: the kernels quantize what they write, and
+an int8 pool's ``quant_scales`` = (k_scales, v_scales) [L, 1] give one
+scale a layer, whose K scale serves the values too (they are lanes of the
+same entries), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,7 +45,15 @@ from ..ops.paged_prefill import (
     paged_prefill_attention_batch,
     paged_prefill_attention_batch_plain,
 )
-from .llama import LlamaModel, _mlp, apply_rope, lm_head_logits, rms_norm, rope_cos_sin
+from .llama import (
+    LlamaModel,
+    _kernel_inputs,
+    _mlp,
+    apply_rope,
+    lm_head_logits,
+    rms_norm,
+    rope_cos_sin,
+)
 
 
 def _pad128(x: int) -> int:
@@ -258,14 +272,15 @@ def mla_decode_step(
     slot_offsets: torch.Tensor,
     seq_lens: torch.Tensor,
     *,
+    quant_scales: tuple | None = None,  # (k_scales, v_scales) [L, 1] float32
     reference_attention: bool = False,
 ):
     """One decode token for each of B sequences.  Returns (logits [B, V]
     float32, k_pools, None); the pool is written in place.
-    ``reference_attention`` runs the kernels' plain versions, as in
+    ``quant_scales`` and ``reference_attention`` as in
     :func:`~kvcached_tpu_torch.models.llama.llama_decode_step`."""
     decode = paged_attention_decode_plain if reference_attention else paged_attention_decode
-    pdt = k_pools.dtype
+    cast, scales = _kernel_inputs(k_pools.dtype, quant_scales)
     cos, sin = _rope_tables(cfg, positions)
     x = params.embed[tokens]  # [B, E]
     for i in range(cfg.num_layers):
@@ -273,9 +288,9 @@ def mla_decode_step(
 
         def attend(q_eff, ent, i=i):
             return decode(
-                q_eff.to(pdt), k_pools, None, page_tables, seq_lens, i,
-                ent.to(pdt), None, slot_pages, slot_offsets,
-                sm_scale=cfg.sm_scale, mla_v_dim=cfg.kv_lora_rank)[0]
+                cast(q_eff), k_pools, None, page_tables, seq_lens, i,
+                cast(ent), None, slot_pages, slot_offsets,
+                sm_scale=cfg.sm_scale, mla_v_dim=cfg.kv_lora_rank, **scales)[0]
 
         x = _mlp(_attention_block(cfg, lp, x, cos, sin, attend), lp, cfg.rms_eps)
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
@@ -294,14 +309,16 @@ def mla_verify_step(
     slot_offsets: torch.Tensor,  # [B, T]
     seq_lens: torch.Tensor,  # [B] INCLUDING all T fed tokens
     *,
+    quant_scales: tuple | None = None,
     reference_attention: bool = False,
 ):
     """Speculative-decode verification: T tokens per sequence in one
     absorbed-attention pass over the latent pool.  Returns (logits
-    [B, T, V] float32, k_pools, None)."""
+    [B, T, V] float32, k_pools, None).  ``quant_scales`` as in
+    :func:`mla_decode_step`."""
     verify = paged_attention_verify_plain if reference_attention else paged_attention_verify
     B, T = tokens.shape
-    pdt = k_pools.dtype
+    cast, scales = _kernel_inputs(k_pools.dtype, quant_scales)
     cos, sin = _rope_tables(cfg, positions)
     x = params.embed[tokens].reshape(B * T, -1)
     for i in range(cfg.num_layers):
@@ -309,10 +326,10 @@ def mla_verify_step(
 
         def attend(q_eff, ent, i=i):
             out = verify(
-                q_eff.to(pdt).reshape(B, T, -1, cfg.cache_head_dim), k_pools, None,
-                page_tables, seq_lens, i, ent.to(pdt).reshape(B, T, 1, -1), None,
+                cast(q_eff).reshape(B, T, -1, cfg.cache_head_dim), k_pools, None,
+                page_tables, seq_lens, i, cast(ent).reshape(B, T, 1, -1), None,
                 slot_pages, slot_offsets, sm_scale=cfg.sm_scale,
-                mla_v_dim=cfg.kv_lora_rank)[0]
+                mla_v_dim=cfg.kv_lora_rank, **scales)[0]
             return out.reshape(B * T, -1, cfg.cache_head_dim)
 
         x = _mlp(_attention_block(cfg, lp, x, cos, sin, attend), lp, cfg.rms_eps)
@@ -332,19 +349,21 @@ def mla_prefill_batch_step(
     q_starts: torch.Tensor,  # [N]
     true_lens: torch.Tensor,  # [N] (0 = pad row)
     *,
+    quant_scales: tuple | None = None,
     reference_attention: bool = False,
 ):
     """Batched prefill: N chunks in one pass over the latent pool, each row
     writing its chunk through its own pages and attending with its own
     (q_start, true_len), identical to N serial :func:`mla_prefill_step`
     calls.  Returns (logits at each row's last real token [N, V] float32,
-    k_pools, None)."""
+    k_pools, None).  ``quant_scales`` as in :func:`mla_decode_step` (the
+    page writer takes each layer's K scale)."""
     if reference_attention:
         write, attend_fn = write_prefill_kv_single_plain, paged_prefill_attention_batch_plain
     else:
         write, attend_fn = write_prefill_kv_single, paged_prefill_attention_batch
     N, T = tokens.shape
-    pdt = k_pools.dtype
+    cast, scales = _kernel_inputs(k_pools.dtype, quant_scales)
     q_starts = q_starts.to(torch.int32)
     true_lens = true_lens.to(torch.int32)
     kv_lens = q_starts + true_lens
@@ -357,11 +376,12 @@ def mla_prefill_batch_step(
         def attend(q_eff, ent, i=i):
             # page writes don't care which row a page belongs to: one
             # [1, N*T, D] stream over N*T/P pages
-            write(k_pools, ent.to(pdt).transpose(0, 1), flat_pages, i)
+            write(k_pools, cast(ent).transpose(0, 1), flat_pages, i,
+                  **({"scale": quant_scales[0][i]} if scales else {}))
             out = attend_fn(
-                q_eff.to(pdt).reshape(N, T, -1, cfg.cache_head_dim), k_pools, None,
+                cast(q_eff).reshape(N, T, -1, cfg.cache_head_dim), k_pools, None,
                 page_tables, q_starts, kv_lens, i, sm_scale=cfg.sm_scale,
-                mla_v_dim=cfg.kv_lora_rank)
+                mla_v_dim=cfg.kv_lora_rank, **scales)
             return out.reshape(N * T, -1, cfg.cache_head_dim)
 
         x = _mlp(_attention_block(cfg, lp, x, cos, sin, attend), lp, cfg.rms_eps)
@@ -382,6 +402,7 @@ def mla_prefill_step(
     q_start,
     true_len,
     *,
+    quant_scales: tuple | None = None,
     reference_attention: bool = False,
 ):
     """Prefill one chunk of one sequence: the N=1 view of
@@ -392,6 +413,6 @@ def mla_prefill_step(
     logits, k_pools, _ = mla_prefill_batch_step(
         params, cfg, tokens[None], positions[None], k_pools, None, chunk_pages[None],
         page_table[None], as_row(q_start), as_row(true_len),
-        reference_attention=reference_attention)
+        quant_scales=quant_scales, reference_attention=reference_attention)
     return logits[0], k_pools, None
 

@@ -33,16 +33,17 @@ the JAX package donated them and got new arrays back.  Each wrapper counts
 its kernel launches in ``<wrapper>.launches``.
 
 The kernels take float32, bfloat16, int8 and float8_e4m3fn pools with
-head_dim 128, and in the MLA mode one float32 or bfloat16 latent pool of
+head_dim 128, and in the MLA mode one latent pool of any of these types at
 DeepSeek-V2's width (640 lanes, values 512).  Byte pools hold what the
 reference's writes store: int8 ``clip(round(x / scale), -127, 127)`` with
 per-(layer, kv head) float32 scales ``[L, KH]`` (the K scale folds into the
-scores, the V scale into the output), e4m3 the float32 value rounded to
-nearest even with NaN past ±464 (:func:`to_e4m3`); their matmuls take bf16
-operands with float32 accumulation, as the TPU kernels' do.  Logit
-soft-capping, the MLA mode of the read-only :func:`paged_attention`, the
-MLA mode with several kv heads, a window or a byte pool raise
-``NotImplementedError``: they are not ported yet.  Each wrapper counts its
+scores, the V scale into the output; a latent pool has one scale a layer,
+``[L, 1]``, its K scale, which serves the values too), e4m3 the float32
+value rounded to nearest even with NaN past ±464 (:func:`to_e4m3`); their
+matmuls take bf16 operands with float32 accumulation, as the TPU kernels'
+do.  Logit soft-capping, the MLA mode of the read-only
+:func:`paged_attention`, and the MLA mode with several kv heads or a window
+raise ``NotImplementedError``: they are not ported yet.  Each wrapper counts its
 launches in ``<wrapper>.launches`` and by pool type in
 ``<wrapper>.launches_by_dtype``.
 """
@@ -78,8 +79,11 @@ MAX_VERIFY_ROWS = 64
 #: DeepSeek-V2's kv_lora_rank 512 + rope 64 lanes, padded to 640
 MLA_HEAD_DIM = 640
 MLA_V_DIM = 512
-#: query rows one MLA block holds (csrc/mla_attend.cu MAX_ROWS, F32_ROWS)
-MLA_ROWS = {torch.bfloat16: 64, torch.float32: 16}
+#: query rows one MLA block holds, by latent pool type (csrc/mla_attend.cu
+#: MAX_ROWS for the tensor-core kernel, F32_ROWS for the float32 one; byte
+#: pools multiply bf16 operands on the tensor cores even for float32 models)
+MLA_ROWS = {torch.bfloat16: 64, torch.int8: 64, torch.float8_e4m3fn: 64,
+            torch.float32: 16}
 #: keys per MLA tile (csrc/mla_attend.cu KT) and the fewest keys per block
 #: of the MLA split-K pass
 MLA_KEY_TILE = 32
@@ -304,7 +308,8 @@ def paged_attention_decode_plain(
     """Plain PyTorch version of K1 (``write_kv=True``), K1r and, with
     ``mla_v_dim``, K5's decode form (``v_pool`` and ``v_new`` unused): the
     same function as the CUDA kernels, in dense tensor ops.  Byte pools
-    quantize the written token; int8 ``k_scales``/``v_scales`` [L, KH]."""
+    quantize the written token; int8 ``k_scales``/``v_scales`` [L, KH] (in
+    the MLA mode the K scales serve the values too)."""
     B, QH, D = q.shape
     KH = k_pool.shape[2]
     G = QH // KH
@@ -313,7 +318,8 @@ def paged_attention_decode_plain(
         sm_scale = 1.0 / math.sqrt(D)
     layer = int(layer)
     ksc = _head_scales(k_scales, dt, layer)
-    vsc = _head_scales(v_scales, dt, layer)
+    # the MLA mode's values are lanes of the K entries: the K scales serve them
+    vsc = ksc if mla_v_dim is not None else _head_scales(v_scales, dt, layer)
     if write_kv:
         _write_slots(k_pool, layer, k_new, slot_pages, slot_offsets, ksc)
         if mla_v_dim is None:
@@ -422,17 +428,20 @@ def paged_attention_decode(
     ``mla_v_dim``: K5's decode form (``_decode_write_kernel_mla``).
     ``k_pool`` is the single latent pool, ``k_new`` the latent entries;
     scores use all lanes, values the first ``mla_v_dim``; ``v_pool`` and
-    ``v_new`` are ignored and ``None`` is returned in ``v_pool``'s place."""
+    ``v_new`` are ignored and ``None`` is returned in ``v_pool``'s place.
+    An int8 latent pool takes ``k_scales`` [L, 1] for keys and values
+    (``v_scales`` is checked and unused)."""
     if mla_v_dim is not None:
-        _mla_mode(k_pool, window, k_scales, v_scales, logit_softcap)
+        ks = _mla_mode(k_pool, window, k_scales, v_scales, logit_softcap)
         if _on_cpu(q, k_pool, page_tables, seq_lens, k_new, slot_pages, slot_offsets):
             out = paged_attention_decode_plain(
                 q, k_pool, None, page_tables, seq_lens, layer, k_new, None,
-                slot_pages, slot_offsets, sm_scale=sm_scale, mla_v_dim=mla_v_dim)[0]
+                slot_pages, slot_offsets, sm_scale=sm_scale, mla_v_dim=mla_v_dim,
+                k_scales=ks)[0]
         else:
             out = paged_attention_decode_mla(
                 q, k_pool, page_tables, seq_lens, layer, k_new, slot_pages,
-                slot_offsets, sm_scale=sm_scale, mla_v_dim=mla_v_dim)
+                slot_offsets, sm_scale=sm_scale, mla_v_dim=mla_v_dim, k_scales=ks)
         return out, k_pool, None
     _unsupported(mla_v_dim, logit_softcap, k_pool.dtype)
     if _on_cpu(q, k_pool, v_pool, page_tables, seq_lens, k_new, v_new,
@@ -590,7 +599,8 @@ def paged_attention_verify_plain(
         sm_scale = 1.0 / math.sqrt(D)
     layer = int(layer)
     ksc = _head_scales(k_scales, dt, layer)
-    vsc = _head_scales(v_scales, dt, layer)
+    # the MLA mode's values are lanes of the K entries: the K scales serve them
+    vsc = ksc if mla_v_dim is not None else _head_scales(v_scales, dt, layer)
     _write_slots(k_pool, layer, k_new, slot_pages, slot_offsets, ksc)
     if mla_v_dim is None:
         _write_slots(v_pool, layer, v_new, slot_pages, slot_offsets, vsc)
@@ -653,15 +663,16 @@ def paged_attention_verify(
     ``mla_v_dim``: K5's verify form (``_verify_write_kernel_mla``), as in
     :func:`paged_attention_decode`."""
     if mla_v_dim is not None:
-        _mla_mode(k_pool, window, k_scales, v_scales, logit_softcap)
+        ks = _mla_mode(k_pool, window, k_scales, v_scales, logit_softcap)
         if _on_cpu(q, k_pool, page_tables, seq_lens, k_new, slot_pages, slot_offsets):
             out = paged_attention_verify_plain(
                 q, k_pool, None, page_tables, seq_lens, layer, k_new, None,
-                slot_pages, slot_offsets, sm_scale=sm_scale, mla_v_dim=mla_v_dim)[0]
+                slot_pages, slot_offsets, sm_scale=sm_scale, mla_v_dim=mla_v_dim,
+                k_scales=ks)[0]
         else:
             out = paged_attention_verify_mla(
                 q, k_pool, page_tables, seq_lens, layer, k_new, slot_pages,
-                slot_offsets, sm_scale=sm_scale, mla_v_dim=mla_v_dim)
+                slot_offsets, sm_scale=sm_scale, mla_v_dim=mla_v_dim, k_scales=ks)
         return out, k_pool, None
     _unsupported(mla_v_dim, logit_softcap, k_pool.dtype)
     if _on_cpu(q, k_pool, v_pool, page_tables, seq_lens, k_new, v_new,
@@ -721,12 +732,14 @@ def paged_attention_verify(
 # ---------------------------------------------------------------------------
 
 
-def write_prefill_kv_single_plain(k_pool, k_new, pages, layer):
-    """Plain PyTorch version of K6."""
+def write_prefill_kv_single_plain(k_pool, k_new, pages, layer, *, scale=None):
+    """Plain PyTorch version of K6 (a byte pool quantizes: ``scale`` is the
+    layer's int8 scales [KH])."""
     KH, T, D = k_new.shape
     TP = k_pool.shape[3]
     keep = pages != 0  # zero page: discard
-    chunks = k_new.to(k_pool.dtype).reshape(KH, T // TP, TP, D).transpose(0, 1)
+    sc = None if scale is None or k_pool.dtype != torch.int8 else scale.float()[:, None, None]
+    chunks = quantize_kv(k_new, k_pool.dtype, sc).reshape(KH, T // TP, TP, D).transpose(0, 1)
     k_pool[int(layer), pages[keep].long()] = chunks[keep]
     return k_pool
 
@@ -737,7 +750,7 @@ def write_prefill_kv_single(
     pages: torch.Tensor,  # [T // page_tokens] int32 physical pages (0 = discard)
     layer,
     *,
-    scale=None,
+    scale=None,  # [num_kv_heads] float32: the layer's int8 scales
 ) -> torch.Tensor:
     """K6: write a prefill chunk's latent entries into the single pool's
     pages, in place.  Returns ``k_pool``.
@@ -745,14 +758,23 @@ def write_prefill_kv_single(
     Replaces the Pallas ``_prefill_write_single_kernel``.  A pure copy,
     bound by device-memory bytes: ``csrc/prefill_write.cu``'s K2 kernel
     with one buffer, one block per (page, kv head) slab moving 16-byte
-    vectors."""
-    _mla_pool(k_pool.dtype, scale)
+    vectors.  Byte pools: ``k_new`` comes unquantized and the kernel
+    quantizes it in the same pass, as the reference's wrapper does before
+    its copy (int8 with ``scale``, the latent's K scale, which the
+    reference requires; e4m3 by :func:`to_e4m3`'s rule)."""
+    _mla_pool(k_pool.dtype)
     KH, T, D = k_new.shape
     TP = k_pool.shape[3]
     if T % TP:
         raise ValueError(f"prefill length {T} must be a multiple of page_tokens {TP}")
+    dt = k_pool.dtype
+    if dt == torch.int8:
+        if scale is None:
+            raise ValueError("int8 pools need the layer's per-head scale")
+        if tuple(scale.shape) != (KH,):
+            raise ValueError(f"scale must be [KH] = {(KH,)}, got {tuple(scale.shape)}")
     if _on_cpu(k_pool, k_new, pages):
-        return write_prefill_kv_single_plain(k_pool, k_new, pages, layer)
+        return write_prefill_kv_single_plain(k_pool, k_new, pages, layer, scale=scale)
     if k_pool.dim() != 5 or not k_pool.is_contiguous():
         raise ValueError(f"k_pool must be a contiguous [L, pages, KH, page_tokens, D], "
                          f"got {tuple(k_pool.shape)}")
@@ -760,16 +782,24 @@ def write_prefill_kv_single(
     if (KHp, Dp) != (KH, D):
         raise ValueError(f"k_new {tuple(k_new.shape)} does not fit the pool {tuple(k_pool.shape)}")
     layer = _layer_index(layer, L)
-    k_new = k_new.to(k_pool.dtype).contiguous()
     n = T // TP
     _require(pages, "pages", torch.int32, (n,))
-    _require_aligned("K6", k_new, k_pool)
     lib = _build.load("prefill_write")
-    rc = lib.kvc_prefill_write_single(
-        k_new.data_ptr(), k_pool.data_ptr(), pages.data_ptr(), layer, P, KH, n,
-        TP * D * k_pool.element_size(), _stream(k_pool))
+    byte = dt in BYTE_DTYPES
+    k_new = (k_new.float() if byte else k_new.to(dt)).contiguous()
+    _require_aligned("K6", k_new, k_pool)
+    if byte:  # K2's quantizing pass without V
+        sc = _scales_arg(None if scale is None else scale.reshape(1, KH), dt, 1, KH,
+                         k_pool.device)
+        rc = lib.kvc_prefill_write_quant(
+            KERNEL_DTYPES[dt], k_new.data_ptr(), None, k_pool.data_ptr(), None,
+            pages.data_ptr(), _ptr(sc), None, layer, P, KH, n, TP * D, _stream(k_pool))
+    else:
+        rc = lib.kvc_prefill_write_single(
+            k_new.data_ptr(), k_pool.data_ptr(), pages.data_ptr(), layer, P, KH, n,
+            TP * D * k_pool.element_size(), _stream(k_pool))
     _build.check(rc, "prefill_write_single")
-    _count(write_prefill_kv_single, k_pool.dtype)
+    _count(write_prefill_kv_single, dt)
     return k_pool
 
 
@@ -778,32 +808,37 @@ def write_prefill_kv_single(
 # ---------------------------------------------------------------------------
 
 
-def _mla_pool(pool_dtype, *scales) -> None:
-    """The MLA kernels take float32 and bf16 latent pools, without scales."""
-    if any(sc is not None for sc in scales):
-        raise NotImplementedError("int8 scales of the MLA latent pool are not ported yet")
-    if pool_dtype not in (torch.float32, torch.bfloat16):
+def _mla_pool(pool_dtype) -> None:
+    """The MLA kernels take float32, bf16, int8 and e4m3 latent pools."""
+    if pool_dtype not in KERNEL_DTYPES:
         raise NotImplementedError(
-            f"{pool_dtype} MLA latent pools are not ported yet (float32, bfloat16)")
+            f"{pool_dtype} MLA latent pools are not ported yet "
+            "(float32, bfloat16, int8, float8_e4m3fn)")
 
 
 def _mla_mode(k_pool, window=None, k_scales=None, v_scales=None, logit_softcap=None):
-    """Refuse what the MLA mode does not port: several kv heads, a window,
-    int8 scales, soft-capping, byte and other pool types."""
+    """Refuse what the MLA mode does not port (several kv heads, a window,
+    soft-capping, other pool types) and check the int8 scales, [L, 1] each.
+    Returns the K scales as the kernels take them (None for other pools):
+    they serve the values too, so ``v_scales`` is checked and unused."""
     _unsupported(None, logit_softcap)
-    _mla_pool(k_pool.dtype, k_scales, v_scales)
+    _mla_pool(k_pool.dtype)
     if k_pool.dim() != 5 or k_pool.shape[2] != 1:
         raise NotImplementedError(
             "the MLA mode is ported for one latent pool [L, pages, 1, page_tokens, D], "
             f"got {tuple(k_pool.shape)}")
     if window:
         raise NotImplementedError("a window in the MLA mode is not ported yet")
+    L = k_pool.shape[0]
+    _scales_arg(v_scales, k_pool.dtype, L, 1, k_pool.device)
+    return _scales_arg(k_scales, k_pool.dtype, L, 1, k_pool.device)
 
 
 def _mla_tiles(rows: int, dtype) -> tuple[int, int]:
-    """(query tiles, rows a tile) of ``rows`` query rows: bf16 blocks hold
-    up to 64 rows in m-tiles of 16, spread evenly over the tiles; float32
-    blocks hold 16."""
+    """(query tiles, rows a tile) of ``rows`` query rows over a ``dtype``
+    latent pool: tensor-core blocks (bf16 and byte pools) hold up to 64
+    rows in m-tiles of 16, spread evenly over the tiles; float32 blocks
+    hold 16."""
     cap = MLA_ROWS[dtype]
     tiles = -(-rows // cap)
     return tiles, 16 * -(-(-(-rows // tiles)) // 16)
@@ -823,7 +858,7 @@ def mla_wave_blocks(device: torch.device, dtype, qrows: int) -> int:
 
 def mla_attend_launch(q, pool, page_tables, q_starts, kv_lens, layer, *,
                       sm_scale=None, mla_v_dim=MLA_V_DIM, k_new=None,
-                      slot_pages=None, slot_offsets=None, split=None):
+                      slot_pages=None, slot_offsets=None, split=None, k_scales=None):
     """One call of ``csrc/mla_attend.cu`` on CUDA tensors: optionally store
     the fed latent entries ``k_new`` [N, Tq, 1, D] at their slots, then
     query row r of chunk row n (head r % H of token r // H) attends the
@@ -831,7 +866,9 @@ def mla_attend_launch(q, pool, page_tables, q_starts, kv_lens, layer, *,
     decode/verify row, whose first query sits at ``kv_lens - Tq``.  Keys
     are split into blocks of ``split`` (None: a split-K pass sized to fill
     the card, merged by a third launch; prefill passes the table width, a
-    single split).  Returns ``[N, Tq, H, D]`` in the pool's type, lanes
+    single split).  Byte pools take bf16 q, float32 entries (quantized in
+    the kernel) and an int8 pool its ``k_scales`` [L, 1].  Returns
+    ``[N, Tq, H, D]`` in the pool's type (float32 for byte pools), lanes
     past ``mla_v_dim`` zero."""
     if pool.dim() != 5 or not pool.is_contiguous():
         raise ValueError(f"the latent pool must be a contiguous [L, pages, 1, page_tokens, D], "
@@ -845,7 +882,9 @@ def mla_attend_launch(q, pool, page_tables, q_starts, kv_lens, layer, *,
             f"mla_v_dim {mla_v_dim}")
     layer = _layer_index(layer, L)
     dt = pool.dtype
-    qc = q.to(dt).contiguous()
+    qdt, ndt, odt = _io_dtypes(dt)
+    qc = q.to(qdt).contiguous()
+    ks = _scales_arg(k_scales, dt, L, 1, q.device)
     maxp = page_tables.shape[1]
     _require(page_tables, "page_tables", torch.int32, (N, maxp))
     _require(kv_lens, "kv_lens", torch.int32, (N,))
@@ -853,8 +892,8 @@ def mla_attend_launch(q, pool, page_tables, q_starts, kv_lens, layer, *,
         _require(q_starts, "q_starts", torch.int32, (N,))
     ptrs = (None, None, None)
     if k_new is not None:
-        k_new = k_new.to(dt).contiguous()
-        _require(k_new, "k_new", dt, (N, Tq, 1, D))
+        k_new = k_new.to(ndt).contiguous()
+        _require(k_new, "k_new", ndt, (N, Tq, 1, D))
         _require(slot_pages, "slot_pages", torch.int32, (N, Tq))
         _require(slot_offsets, "slot_offsets", torch.int32, (N, Tq))
         _require_aligned("K5", k_new)
@@ -871,7 +910,7 @@ def mla_attend_launch(q, pool, page_tables, q_starts, kv_lens, layer, *,
         split = max(MLA_MIN_SPLIT, -(-width // per_row))
     split = -(-max(split, 1) // MLA_KEY_TILE) * MLA_KEY_TILE
     splits = max(-(-width // split), 1)
-    out = torch.empty_like(qc)
+    out = torch.empty(qc.shape, dtype=odt, device=q.device)
     # per-split partials (acc [R], max, sum) of each query row
     scratch = torch.empty(N * splits * rows * (MLA_V_DIM + 2) if splits > 1 else 0,
                           dtype=torch.float32, device=q.device)
@@ -879,7 +918,7 @@ def mla_attend_launch(q, pool, page_tables, q_starts, kv_lens, layer, *,
     rc = lib.kvc_mla_attend(
         KERNEL_DTYPES[dt], qc.data_ptr(), pool.data_ptr(), page_tables.data_ptr(),
         None if q_starts is None else q_starts.data_ptr(), kv_lens.data_ptr(),
-        *ptrs, out.data_ptr(), scratch.data_ptr() if splits > 1 else None,
+        *ptrs, _ptr(ks), out.data_ptr(), scratch.data_ptr() if splits > 1 else None,
         N, Tq, H, layer, P, TP, maxp, qrows, split, float(sm_scale), _stream(q),
     )
     _build.check(rc, "mla_attend")
@@ -888,29 +927,30 @@ def mla_attend_launch(q, pool, page_tables, q_starts, kv_lens, layer, *,
 
 def paged_attention_decode_mla(q, k_pool, page_tables, seq_lens, layer, k_new,
                                slot_pages, slot_offsets, *, sm_scale=None,
-                               mla_v_dim=MLA_V_DIM):
+                               mla_v_dim=MLA_V_DIM, k_scales=None):
     """K5, decode form, on CUDA tensors: the kernel behind
     ``paged_attention_decode(..., mla_v_dim=...)``.  q [B, H, D], k_new
-    [B, 1, D], slots [B]; returns [B, H, D].
+    [B, 1, D], slots [B]; returns [B, H, D] in q's type.
 
     Replaces the Pallas ``_decode_write_kernel_mla``.  Bound by
     device-memory bytes (each latent entry is read once for all H heads,
-    ~29 FLOPs a byte at H=16); ``csrc/mla_attend.cu`` stores the token,
-    splits each row's keys over blocks and merges their partials."""
+    ~29 FLOPs a byte at H=16 on a bf16 pool, twice that on a byte pool);
+    ``csrc/mla_attend.cu`` stores the token, splits each row's keys over
+    blocks and merges their partials."""
     out = mla_attend_launch(
         q[:, None], k_pool, page_tables, None, seq_lens, layer, sm_scale=sm_scale,
         mla_v_dim=mla_v_dim, k_new=k_new[:, None], slot_pages=slot_pages[:, None],
-        slot_offsets=slot_offsets[:, None])
+        slot_offsets=slot_offsets[:, None], k_scales=k_scales)
     _count(paged_attention_decode_mla, k_pool.dtype)
     return out[:, 0].to(q.dtype)
 
 
 def paged_attention_verify_mla(q, k_pool, page_tables, seq_lens, layer, k_new,
                                slot_pages, slot_offsets, *, sm_scale=None,
-                               mla_v_dim=MLA_V_DIM):
+                               mla_v_dim=MLA_V_DIM, k_scales=None):
     """K5, verify form, on CUDA tensors: the kernel behind
     ``paged_attention_verify(..., mla_v_dim=...)``.  q [B, T, H, D], k_new
-    [B, T, 1, D], slots [B, T]; returns [B, T, H, D].
+    [B, T, 1, D], slots [B, T]; returns [B, T, H, D] in q's type.
 
     Replaces the Pallas ``_verify_write_kernel_mla``: decode with T fed
     tokens, whose T*H query rows (80 at T=5, H=16) are tiled over blocks
@@ -918,7 +958,7 @@ def paged_attention_verify_mla(q, k_pool, page_tables, seq_lens, layer, k_new,
     out = mla_attend_launch(
         q, k_pool, page_tables, None, seq_lens, layer, sm_scale=sm_scale,
         mla_v_dim=mla_v_dim, k_new=k_new, slot_pages=slot_pages,
-        slot_offsets=slot_offsets)
+        slot_offsets=slot_offsets, k_scales=k_scales)
     _count(paged_attention_verify_mla, k_pool.dtype)
     return out.to(q.dtype)
 

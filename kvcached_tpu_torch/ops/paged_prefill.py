@@ -65,7 +65,8 @@ def paged_prefill_attention_batch_plain(
 ):
     """Plain PyTorch version of K3 and, with ``mla_v_dim``, of K3m (values
     from the first ``mla_v_dim`` lanes of ``k_pool``; ``v_pool`` unused).
-    int8 pools take ``k_scales``/``v_scales`` [L, KH]."""
+    int8 pools take ``k_scales``/``v_scales`` [L, KH] (in the MLA mode the
+    K scales serve the values too)."""
     N, T, QH, D = q.shape
     KH = k_pool.shape[2]
     G = QH // KH
@@ -74,7 +75,8 @@ def paged_prefill_attention_batch_plain(
         sm_scale = 1.0 / math.sqrt(D)
     layer = int(layer)
     ksc = _head_scales(k_scales, dt, layer)
-    vsc = _head_scales(v_scales, dt, layer)
+    # the MLA mode's values are lanes of the K entries: the K scales serve them
+    vsc = ksc if mla_v_dim is not None else _head_scales(v_scales, dt, layer)
     k, v = _kv_values(k_pool, v_pool, layer, page_tables, mla_v_dim)  # [N, KH, S, D]
     # [N, T, QH, D] -> [N, KH, T*G, D] with row r = t*G + g
     mm = _mm_dtype(dt)
@@ -128,16 +130,17 @@ def paged_prefill_attention_batch(
     folded into the scores and the output.
 
     ``mla_v_dim``: K3m, the MLA mode over the single latent pool (values
-    its first ``mla_v_dim`` lanes, ``v_pool`` ignored)."""
+    its first ``mla_v_dim`` lanes, ``v_pool`` ignored; an int8 latent pool
+    takes ``k_scales`` [L, 1], which serve the values too)."""
     if mla_v_dim is not None:
-        _mla_mode(k_pool, window, k_scales, v_scales, logit_softcap)
+        ks = _mla_mode(k_pool, window, k_scales, v_scales, logit_softcap)
         if _on_cpu(q, k_pool, page_tables, q_starts, kv_lens):
             return paged_prefill_attention_batch_plain(
                 q, k_pool, None, page_tables, q_starts, kv_lens, layer,
-                sm_scale=sm_scale, mla_v_dim=mla_v_dim)
+                sm_scale=sm_scale, mla_v_dim=mla_v_dim, k_scales=ks)
         return paged_prefill_attention_batch_mla(
             q, k_pool, page_tables, q_starts, kv_lens, layer, sm_scale=sm_scale,
-            mla_v_dim=mla_v_dim)
+            mla_v_dim=mla_v_dim, k_scales=ks)
     _unsupported(mla_v_dim, logit_softcap, k_pool.dtype)
     if _on_cpu(q, k_pool, v_pool, page_tables, q_starts, kv_lens):
         return paged_prefill_attention_batch_plain(
@@ -179,10 +182,11 @@ def paged_prefill_attention_batch(
 
 
 def paged_prefill_attention_batch_mla(q, k_pool, page_tables, q_starts, kv_lens,
-                                      layer=0, *, sm_scale=None, mla_v_dim=MLA_V_DIM):
+                                      layer=0, *, sm_scale=None, mla_v_dim=MLA_V_DIM,
+                                      k_scales=None):
     """K3m on CUDA tensors: the kernel behind
     ``paged_prefill_attention_batch(..., mla_v_dim=...)``.  q [N, T, H, D];
-    returns [N, T, H, D].
+    returns [N, T, H, D] in q's type.
 
     Replaces the Pallas ``_prefill_kernel`` in MLA mode.  Bound by
     tensor-core operations for long chunks (each latent entry serves
@@ -191,7 +195,8 @@ def paged_prefill_attention_batch_mla(q, k_pool, page_tables, q_starts, kv_lens,
     limit, in one split."""
     width = page_tables.shape[1] * k_pool.shape[3]
     out = mla_attend_launch(q, k_pool, page_tables, q_starts, kv_lens, layer,
-                            sm_scale=sm_scale, mla_v_dim=mla_v_dim, split=width)
+                            sm_scale=sm_scale, mla_v_dim=mla_v_dim, split=width,
+                            k_scales=k_scales)
     _count(paged_prefill_attention_batch_mla, k_pool.dtype)
     return out.to(q.dtype)
 

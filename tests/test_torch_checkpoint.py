@@ -36,8 +36,10 @@ def _hf_generate(ckpt, prompts):
     import transformers.utils.import_utils as hf_imports
 
     # scikit-learn serves only assisted generation's candidate heuristics,
-    # which greedy generate never runs; its import costs seconds
+    # and scipy only the object-detection losses, neither of which greedy
+    # generate runs; their imports cost seconds
     hf_imports._sklearn_available = False
+    hf_imports._scipy_available = False
     from transformers import AutoModelForCausalLM
 
     model = AutoModelForCausalLM.from_pretrained(ckpt, dtype=torch.float32).eval()

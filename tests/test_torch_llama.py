@@ -14,6 +14,7 @@ from two libraries).
 """
 
 import contextlib
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -51,23 +52,54 @@ def numpy_jax_params(jcfg, seed=0):
     return jax.tree.map(jnp.asarray, tree), tree
 
 
+@contextlib.contextmanager
+def jax_one_page_chunks():
+    """The JAX package's paged kernels, called inside without an explicit
+    ``pages_per_chunk``, copy one page a DMA chunk: a tiling choice that
+    leaves their function unchanged (their ``pages_per_chunk`` argument),
+    while interpret mode lowers one DMA body for each page a chunk holds
+    (~30% of a JAX engine's cost at two-page tables)."""
+    chunkers = [(importlib.import_module("kvcached_tpu.ops.paged_attention"),
+                 "_pick_pages_per_chunk"),
+                (importlib.import_module("kvcached_tpu.ops.paged_prefill"), "_pick_chunk")]
+    saved = [getattr(mod, name) for mod, name in chunkers]
+    for mod, name in chunkers:
+        setattr(mod, name, lambda *args: 1)
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(chunkers, saved):
+            setattr(mod, name, fn)
+
+
+def jax_compile_lowest(fn, *args):
+    """``fn`` compiled for ``args``' shapes as one program at XLA's lowest
+    optimisation level, its paged kernels copying one page a DMA chunk
+    (:func:`jax_one_page_chunks`): interpret-mode Pallas makes large
+    programs, and op-by-op dispatch or XLA's slow passes cost seconds on
+    them.  The program can be called again on other arrays of the same
+    shapes."""
+    with jax_one_page_chunks():
+        lowered = jax.jit(fn).lower(*args)
+    return lowered.compile({"xla_backend_optimization_level": 0,
+                            "xla_llvm_disable_expensive_passes": True})
+
+
 def jax_lowest(fn, *args):
-    """``fn(*args)`` as one program compiled at XLA's lowest optimisation
-    level: interpret-mode Pallas makes large programs, and op-by-op
-    dispatch or XLA's slow passes cost seconds on them."""
-    return jax.jit(fn).lower(*args).compile(
-        {"xla_backend_optimization_level": 0,
-         "xla_llvm_disable_expensive_passes": True})(*args)
+    """``fn(*args)`` through :func:`jax_compile_lowest`."""
+    return jax_compile_lowest(fn, *args)(*args)
 
 
 @contextlib.contextmanager
 def jax_fast_compile():
     """JAX programs compiled inside skip XLA's slow optimisation passes
-    (the JAX engines' interpret-mode programs: ~15% of their cost)."""
+    (the JAX engines' interpret-mode programs: ~15% of their cost), their
+    paged kernels copying one page a DMA chunk (:func:`jax_one_page_chunks`)."""
     prev = jax.config.read("jax_disable_most_optimizations")
     jax.config.update("jax_disable_most_optimizations", True)
     try:
-        yield
+        with jax_one_page_chunks():
+            yield
     finally:
         jax.config.update("jax_disable_most_optimizations", prev)
 

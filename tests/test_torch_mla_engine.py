@@ -1,11 +1,13 @@
 """The port's MLA engine against the JAX package's MLA engine, and its
 elastic limit.
 
-One JAX engine run (module-scoped, Pallas in interpret mode) and the port's
-engines on the CPU serve the same prompts with the same float32 parameters
-and float32 latent pools.  Greedy rows accept a draft only when it equals
+Two JAX engine runs (module-scoped, Pallas in interpret mode), one on a
+float32 latent pool and one on an int8 latent pool (the engine's default
+scale), and the port's engines on the CPU serve the same prompts with the
+same float32 parameters.  Greedy rows accept a draft only when it equals
 the model's own argmax, so at float32 the port's speculative engine must
-give exactly the plain engine's tokens, and both the JAX engine's.
+give exactly the plain engine's tokens, and both the JAX engine's; on the
+int8 pool the port's greedy tokens must be the JAX engine's.
 """
 
 import hashlib
@@ -43,16 +45,20 @@ NEW = 10
 
 @pytest.fixture(scope="module")
 def served():
-    """The JAX MLA engine's greedy tokens, and the shared params."""
+    """The JAX MLA engine's greedy tokens on the float32 latent pool, the
+    shared params, and its greedy tokens on the int8 latent pool."""
     jcfg = JMLAConfig.toy(dtype="float32")
     jparams, tree = numpy_jax_mla_params(jcfg)
-    eng = JLLMEngine(jcfg, JEngineConfig(interpret=True, **ECFG), params=jparams)
-    try:
-        with jax_fast_compile():
-            want = [o.output_tokens for o in eng.generate(
-                PROMPTS, JSamplingParams(max_new_tokens=NEW))]
-    finally:
-        eng.shutdown()
+    want = {}
+    for kv_dtype in ("float32", "int8"):
+        eng = JLLMEngine(jcfg, JEngineConfig(interpret=True, **{**ECFG, "kv_dtype": kv_dtype}),
+                         params=jparams)
+        try:
+            with jax_fast_compile():
+                want[kv_dtype] = [o.output_tokens for o in eng.generate(
+                    PROMPTS, JSamplingParams(max_new_tokens=NEW))]
+        finally:
+            eng.shutdown()
     cfg = MLAConfig.toy(dtype="float32")
     return cfg, params_from_jax(tree, cfg, device="cpu"), want
 
@@ -69,7 +75,8 @@ def _serve(eng, prompts, sp):
 
 
 def test_tokens_match_jax_with_spec_off_and_on(served):
-    cfg, params, want = served
+    cfg, params, by_pool = served
+    want = by_pool["float32"]
     sp = SamplingParams(max_new_tokens=NEW)
     eng = _engine(cfg, params)
     assert eng.v_pools is None and eng.kv_cfg.num_kv_buffers == 1
@@ -84,7 +91,8 @@ def test_tokens_match_jax_with_spec_off_and_on(served):
 def test_prefix_hit_batched_prefill_and_sampled_row(served):
     """A prefix-cache hit and batched prefill keep the greedy tokens; a
     seeded sampled row beside them is reproducible."""
-    cfg, params, want = served
+    cfg, params, by_pool = served
+    want = by_pool["float32"]
     sp = SamplingParams(max_new_tokens=NEW)
     eng = _engine(cfg, params, prefill_batch=4)
     first = eng.generate([PROMPTS[1]], sp)[0].output_tokens
@@ -137,3 +145,15 @@ def test_live_limit_shrinks_and_grows_the_latent_pool(served):
         eng.shutdown()
     md5 = lambda x: hashlib.md5(str(x).encode()).hexdigest()  # noqa: E731
     assert md5(got) == md5(free)
+
+
+def test_int8_latent_pool_tokens_match_jax(served):
+    """On an int8 latent pool (one scale a layer, the engine's default) the
+    port's engine gives the JAX engine's greedy tokens, across the chunked
+    prompt and a page crossing."""
+    cfg, params, by_pool = served
+    eng = _engine(cfg, params, kv_dtype="int8")
+    assert eng.k_pools.dtype == torch.int8 and eng.v_pools is None
+    assert tuple(eng.quant_scales[0].shape) == (cfg.num_layers, 1)
+    got, _ = _serve(eng, PROMPTS, SamplingParams(max_new_tokens=NEW))
+    assert got == by_pool["int8"]

@@ -176,7 +176,7 @@ def test_mla_wrapper_contract(monkeypatch):
     q, sl, pt = torch.zeros(2, QH, D), torch.tensor([5, 9], dtype=torch.int32), \
         torch.tensor([[1], [2]], dtype=torch.int32)
     ent, sp = torch.zeros(2, 1, D), torch.zeros(2, dtype=torch.int32)
-    for kw in (dict(window=8), dict(k_scales=torch.ones(L, 1)), dict(logit_softcap=30.0)):
+    for kw in (dict(window=8), dict(logit_softcap=30.0)):
         with pytest.raises(NotImplementedError):
             ops.paged_attention_decode(q, kp, None, pt, sl, 0, ent, None, sp, sp,
                                        mla_v_dim=R, **kw)
