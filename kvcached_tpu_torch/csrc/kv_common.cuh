@@ -207,6 +207,24 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// A score after Gemma2's logit soft-capping, cap * tanh(s / cap), in a
+// kernel instance that caps (kCap), as the reference computes it: s * (1 /
+// cap), the accurate tanhf (never tanh.approx, whose ~2^-11 relative error
+// is ~0.025 of a score at cap 50), times cap.  The result is bounded by
+// cap, so a row keeps finite maxima; masked lanes are set to -inf after it.
+// The cap reaches the kernels as one float (0: off) and the launch picks
+// the instance from it, so an uncapped launch runs code without the cap: a
+// runtime test on the cap inside the tile step made K3's uncapped byte-pool
+// instances 17-19% slower on the H100.
+template <bool kCap>
+__device__ __forceinline__ float soft_cap(float s, float cap) {
+  if constexpr (kCap) {
+    return cap * tanhf(s * (1.f / cap));
+  } else {
+    return s;
+  }
+}
+
 // ---- the tile step of the flash-attention kernels (K3, K4) ---------------
 
 constexpr int kHeadDim = 128;  // head_dim of every kernel
@@ -224,15 +242,17 @@ constexpr int kF32Rows = 64;   // query rows per float32 block
 // row length, not as pointers, keeps K3 at its own code's speed (a pointer
 // interface cost it 8% and 32 registers).  Query row i sees a key <=
 // qpos[i], and > qpos[i] - window with a window; a score is (q . k) *
-// sm_scale * k_scale (k_scale: an int8 pool's K scale, else 1); the softmax
-// weights are rounded to bf16 before they multiply V.
-template <int LD>
+// sm_scale * k_scale (k_scale: an int8 pool's K scale, else 1), then, in
+// an instance that caps (kCap), softcap * tanh(score / softcap) before the
+// mask (Gemma2's logit soft-capping); the softmax weights are rounded to
+// bf16 before they multiply V.
+template <bool kCap, int LD>
 __device__ __forceinline__ void mma_attend_tile(
     const uint32_t (&qa)[kHeadDim / 16][4], const bool (&live)[2],
     const int (&qpos)[2], const __nv_bfloat16 (&k_s)[kMmaKeys][LD],
     const __nv_bfloat16 (&v_s)[kMmaKeys][LD], int t0, int nk, int window,
-    float sm_scale, float k_scale, float (&o)[kHeadDim / 8][4], float (&m)[2],
-    float (&l)[2]) {
+    float sm_scale, float k_scale, float softcap, float (&o)[kHeadDim / 8][4],
+    float (&m)[2], float (&l)[2]) {
   const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
   // S = Q K^T: 8 column tiles of 8 keys
   float s[kMmaKeys / 8][4];
@@ -256,7 +276,7 @@ __device__ __forceinline__ void mma_attend_tile(
       const int key = t0 + nt * 8 + 2 * tq + (e % 2);
       const bool ok = live[i] && key < t0 + nk && key <= qpos[i] &&
                       (window <= 0 || key > qpos[i] - window);
-      s[nt][e] = ok ? s[nt][e] * sm_scale * k_scale : -INFINITY;
+      s[nt][e] = ok ? soft_cap<kCap>(s[nt][e] * sm_scale * k_scale, softcap) : -INFINITY;
       mx[i] = fmaxf(mx[i], s[nt][e]);
     }
   }
@@ -320,11 +340,14 @@ constexpr size_t kF32SmemBytes =
 // p_s [kF32Rows][kF32Keys] and the softmax state m_s / l_s / a_s
 // [kF32Rows]; acc is this lane's unnormalised output per query row.  Query
 // row r sits at qpos0 + r / G and sees a key <= it, and > it - window with
-// a window.  The caller puts a barrier before restaging k_s / v_s.
+// a window; kCap and softcap as in mma_attend_tile.  The caller puts a
+// barrier before restaging k_s / v_s.
+template <bool kCap>
 __device__ __forceinline__ void f32_attend_tile(
     const float* q_s, const float* k_s, const float* v_s, float* p_s,
     float* m_s, float* l_s, float* a_s, float (&acc)[kF32Rows], int rows,
-    int G, int qpos0, int t0, int nk, int window, float sm_scale) {
+    int G, int qpos0, int t0, int nk, int window, float sm_scale,
+    float softcap) {
   constexpr int D = kHeadDim, TILE = kF32Keys;
   const int d = threadIdx.x;
   for (int i = d; i < rows * TILE; i += kThreads) {
@@ -338,7 +361,7 @@ __device__ __forceinline__ void f32_attend_tile(
         const float* kr = k_s + t * (D + 1);
 #pragma unroll 16
         for (int e = 0; e < D; ++e) dot = fmaf(qr[e], kr[e], dot);
-        s = dot * sm_scale;
+        s = soft_cap<kCap>(dot * sm_scale, softcap);
       }
     }
     p_s[i] = s;

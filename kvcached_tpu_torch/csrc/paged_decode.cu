@@ -8,7 +8,11 @@
 //   - the row attends over tokens [win_start, seq_len), seq_len including
 //     the current token, win_start = max(seq_len - window, 0);
 //   - GQA: q head h*G + g reads kv head h;
-//   - scores are (q . k) * sm_scale in float32, online softmax in float32;
+//   - scores are (q . k) * sm_scale in float32, then, when softcap > 0,
+//     softcap * tanh(score / softcap) before the mask (Gemma2's
+//     attn_logit_softcapping, the reference's logit_softcap; 0 is off; the
+//     launch picks a capping or a plain instance of pass 1),
+//     online softmax in float32;
 //   - a row with no tokens yields zeros;
 //   - page-table entries past the row's last page are never read (the
 //     loops stop at seq_len instead of clamping the index);
@@ -82,8 +86,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // Pass 1.  T is the pool's type (kv_common.cuh Types gives q's, the
 // tokens' and the operands'); GT >= G is the compile-time bound of the GQA
-// group.
-template <typename T, int GT>
+// group; kCap: the soft-capping instance.
+template <typename T, int GT, bool kCap>
 __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     const typename kvc::Types<T>::Q* __restrict__ q,      // [B, KH*G, D]
     T* k_pool, T* v_pool,                                 // [L, P, KH, TP, D]
@@ -99,7 +103,7 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     float* __restrict__ part_l,
     float* __restrict__ part_acc,                         // [B, KH, S, GT, D]
     int layer, int num_pages, int KH, int G, int TP, int maxp, int window,
-    float sm_scale, int write_kv) {
+    float sm_scale, float softcap, int write_kv) {
   using namespace kvc;
   using Q = typename Types<T>::Q;
   using New = typename Types<T>::New;
@@ -193,7 +197,7 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
 #pragma unroll
           for (int i = 0; i < EPL; ++i) dot = fmaf(qv[g][i], kx[u][i], dot);
           dot = warp_sum(dot);
-          s[u] = t0 + u < hi ? dot * sm_scale * ksc : -INFINITY;
+          s[u] = t0 + u < hi ? soft_cap<kCap>(dot * sm_scale * ksc, softcap) : -INFINITY;
           mt = fmaxf(mt, s[u]);
         }
         const float m_new = fmaxf(m[g], mt);  // finite: t0 < hi
@@ -279,19 +283,21 @@ int launch(const void* q, void* k_pool, void* v_pool, const void* page_tables,
            const void* slot_pages, const void* slot_offsets,
            const float* k_scales, const float* v_scales, void* out,
            void* scratch, int B, int layer, int num_pages, int KH, int G,
-           int TP, int maxp, int window, float sm_scale, int write_kv,
-           cudaStream_t stream) {
+           int TP, int maxp, int window, float sm_scale, float softcap,
+           int write_kv, cudaStream_t stream) {
   using Ty = kvc::Types<T>;
   const int S = (maxp * TP + SPLIT - 1) / SPLIT;
   float* part_m = (float*)scratch;
   float* part_l = part_m + (size_t)B * KH * S * GT;
   float* part_acc = part_l + (size_t)B * KH * S * GT;
-  decode_split_kernel<T, GT><<<dim3(B, KH, S), THREADS, 0, stream>>>(
+  auto split_kernel = softcap > 0.f ? decode_split_kernel<T, GT, true>
+                                    : decode_split_kernel<T, GT, false>;
+  split_kernel<<<dim3(B, KH, S), THREADS, 0, stream>>>(
       (const typename Ty::Q*)q, (T*)k_pool, (T*)v_pool, (const int*)page_tables,
       (const int*)seq_lens, (const typename Ty::New*)k_new,
       (const typename Ty::New*)v_new, (const int*)slot_pages,
       (const int*)slot_offsets, k_scales, v_scales, part_m, part_l, part_acc,
-      layer, num_pages, KH, G, TP, maxp, window, sm_scale, write_kv);
+      layer, num_pages, KH, G, TP, maxp, window, sm_scale, softcap, write_kv);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   decode_merge_kernel<T, GT><<<dim3(B, KH), D, 0, stream>>>(
@@ -306,12 +312,12 @@ int dispatch(int G, const void* q, void* k_pool, void* v_pool,
              const void* slot_offsets, const float* k_scales,
              const float* v_scales, void* out, void* scratch, int B,
              int layer, int num_pages, int KH, int TP, int maxp, int window,
-             float sm_scale, int write_kv, cudaStream_t s) {
+             float sm_scale, float softcap, int write_kv, cudaStream_t s) {
 #define KVC_DECODE(GT)                                                      \
   return launch<T, GT>(q, k_pool, v_pool, page_tables, seq_lens, k_new,     \
                        v_new, slot_pages, slot_offsets, k_scales, v_scales, \
                        out, scratch, B, layer, num_pages, KH, G, TP, maxp,  \
-                       window, sm_scale, write_kv, s)
+                       window, sm_scale, softcap, write_kv, s)
   if (G <= 4) KVC_DECODE(4);
   if (G <= 8) KVC_DECODE(8);
   KVC_DECODE(16);
@@ -324,14 +330,15 @@ int dispatch(int G, const void* q, void* k_pool, void* v_pool,
 // GT = 4, 8 or 16 (the smallest >= G); the wrapper allocates it.  q, the
 // tokens and out are in the pool's type for float32 and bf16 pools; for
 // int8 and e4m3 pools q is bf16, the tokens and out float32.  k_scales /
-// v_scales: an int8 pool's [L, KH] float32 scales (null: 1).
+// v_scales: an int8 pool's [L, KH] float32 scales (null: 1); softcap: the
+// logit soft-cap (0: off).
 extern "C" int kvc_paged_decode(
     int dtype, const void* q, void* k_pool, void* v_pool,
     const void* page_tables, const void* seq_lens, const void* k_new,
     const void* v_new, const void* slot_pages, const void* slot_offsets,
     const float* k_scales, const float* v_scales, void* out, void* scratch,
     int B, int layer, int num_pages, int KH, int G, int TP, int maxp,
-    int window, float sm_scale, int write_kv, void* stream) {
+    int window, float sm_scale, float softcap, int write_kv, void* stream) {
   if (G < 1 || G > 16) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
@@ -339,7 +346,7 @@ extern "C" int kvc_paged_decode(
   return dispatch<T>(G, q, k_pool, v_pool, page_tables, seq_lens, k_new,      \
                      v_new, slot_pages, slot_offsets, k_scales, v_scales, out, \
                      scratch, B, layer, num_pages, KH, TP, maxp, window,       \
-                     sm_scale, write_kv, s)
+                     sm_scale, softcap, write_kv, s)
   switch (dtype) {
     case kvc::kF32: KVC_DTYPE(float);
     case kvc::kBF16: KVC_DTYPE(__nv_bfloat16);

@@ -8,7 +8,11 @@
 //   - query row r = t*G + g of kv head h is q head h*G + g of token t;
 //   - mask: kv <= q_pos && kv < kv_len, and with a window also
 //     kv > q_pos - window;
-//   - scores (q . k) * sm_scale in float32, online softmax in float32; a
+//   - scores (q . k) * sm_scale in float32, with a soft-cap softcap *
+//     tanh(score / softcap) before the mask when softcap > 0 (Gemma2's
+//     attn_logit_softcapping, _prefill_kernel's logit_softcap; 0 is off;
+//     the launch picks a capping or a plain instance of each kernel),
+//     online softmax in float32; a
 //     bfloat16 pool multiplies bf16 operands (q, k, the softmax weights, v)
 //     with float32 accumulation, a float32 pool multiplies in float32;
 //   - byte pools (int8, e4m3) run the bf16 path on their values widened to
@@ -48,6 +52,7 @@ constexpr int THREADS = kThreads;
 constexpr int ROWS = kF32Rows;  // query rows (token x group head) per block
 constexpr int TILE = kF32Keys;  // keys staged per step
 
+template <bool kCap>
 __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
     const float* __restrict__ q,          // [N, Tq, KH*G, D]
     const float* __restrict__ k_pool,     // [L, P, KH, TP, D]
@@ -57,7 +62,7 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
     const int* __restrict__ kv_lens,      // [N]
     float* __restrict__ out,              // [N, Tq, KH*G, D]
     int layer, int num_pages, int KH, int G, int TP, int maxp, int Tq,
-    int window, float sm_scale) {
+    int window, float sm_scale, float softcap) {
   extern __shared__ float smem[];
   float* q_s = smem;                       // [ROWS][D]
   float* k_s = q_s + ROWS * D;             // [TILE][D + 1]
@@ -114,8 +119,8 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
     __syncthreads();
     // keys below kv_hi <= kv_len: the tile step's causal and window mask
     // is the whole mask
-    f32_attend_tile(q_s, k_s, v_s, p_s, m_s, l_s, a_s, acc, rows, G, qpos_lo,
-                    t0, nk, window, sm_scale);
+    f32_attend_tile<kCap>(q_s, k_s, v_s, p_s, m_s, l_s, a_s, acc, rows, G, qpos_lo,
+                          t0, nk, window, sm_scale, softcap);
     __syncthreads();
   }
 #pragma unroll
@@ -145,8 +150,9 @@ __device__ __forceinline__ uint4 load8_bf16(const P* p) {
 }
 
 // P: the pool's type (bf16, int8 or e4m3); q is bf16, the output
-// Types<P>::Out (bf16, or float32 for byte pools).
-template <typename P>
+// Types<P>::Out (bf16, or float32 for byte pools); kCap: the soft-capping
+// instance.
+template <typename P, bool kCap>
 __global__ void __launch_bounds__(THREADS) paged_prefill_mma_kernel(
     const __nv_bfloat16* __restrict__ q,       // [N, Tq, KH*G, D]
     const P* __restrict__ k_pool,              // [L, P, KH, TP, D]
@@ -158,7 +164,7 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_mma_kernel(
     const float* __restrict__ v_scales,
     typename Types<P>::Out* __restrict__ out,  // [N, Tq, KH*G, D]
     int layer, int num_pages, int KH, int G, int TP, int maxp, int Tq,
-    int window, float sm_scale) {
+    int window, float sm_scale, float softcap) {
   __shared__ __align__(16) __nv_bfloat16 k_s[MMA_KT][MMA_LD];
   __shared__ __align__(16) __nv_bfloat16 v_s[MMA_KT][MMA_LD];
 
@@ -233,7 +239,8 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_mma_kernel(
     __syncthreads();
     // keys below kv_hi <= kv_len: the tile step's causal and window mask
     // is the whole mask
-    mma_attend_tile(qa, live, qpos, k_s, v_s, t0, nk, window, sm_scale, ksc, o, m, l);
+    mma_attend_tile<kCap>(qa, live, qpos, k_s, v_s, t0, nk, window, sm_scale, ksc,
+                          softcap, o, m, l);
   }
 
 #pragma unroll
@@ -262,25 +269,26 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_mma_kernel(
   }
 }
 
+template <bool kCap>
 int launch_f32(const void* q, const void* k_pool, const void* v_pool,
                const void* page_tables, const void* q_starts,
                const void* kv_lens, void* out, int N, int layer, int num_pages,
                int KH, int G, int TP, int maxp, int Tq, int window,
-               float sm_scale, cudaStream_t stream) {
+               float sm_scale, float softcap, cudaStream_t stream) {
   static bool configured = false;  // dynamic shared memory above 48 KB
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_prefill_kernel,
+        paged_prefill_kernel<kCap>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kF32SmemBytes);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const int QT = ROWS / G;
   dim3 grid(N, KH, (Tq + QT - 1) / QT);
-  paged_prefill_kernel<<<grid, THREADS, kF32SmemBytes, stream>>>(
+  paged_prefill_kernel<kCap><<<grid, THREADS, kF32SmemBytes, stream>>>(
       (const float*)q, (const float*)k_pool, (const float*)v_pool,
       (const int*)page_tables, (const int*)q_starts, (const int*)kv_lens,
-      (float*)out, layer, num_pages, KH, G, TP, maxp, Tq, window, sm_scale);
+      (float*)out, layer, num_pages, KH, G, TP, maxp, Tq, window, sm_scale, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -290,14 +298,16 @@ int launch_mma(const void* q, const void* k_pool, const void* v_pool,
                const void* kv_lens, const float* k_scales,
                const float* v_scales, void* out, int N, int layer,
                int num_pages, int KH, int G, int TP, int maxp, int Tq,
-               int window, float sm_scale, cudaStream_t stream) {
+               int window, float sm_scale, float softcap, cudaStream_t stream) {
   const int QT = ROWS / G;
   dim3 grid(N, KH, (Tq + QT - 1) / QT);
-  paged_prefill_mma_kernel<P><<<grid, THREADS, 0, stream>>>(
+  auto kernel = softcap > 0.f ? paged_prefill_mma_kernel<P, true>
+                              : paged_prefill_mma_kernel<P, false>;
+  kernel<<<grid, THREADS, 0, stream>>>(
       (const __nv_bfloat16*)q, (const P*)k_pool, (const P*)v_pool,
       (const int*)page_tables, (const int*)q_starts, (const int*)kv_lens,
       k_scales, v_scales, (typename Types<P>::Out*)out, layer, num_pages, KH,
-      G, TP, maxp, Tq, window, sm_scale);
+      G, TP, maxp, Tq, window, sm_scale, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -305,24 +315,24 @@ int launch_mma(const void* q, const void* k_pool, const void* v_pool,
 
 // q is in the pool's type for float32 and bf16 pools and bf16 for int8 and
 // e4m3 pools, whose output is float32; k_scales / v_scales: an int8 pool's
-// [L, KH] float32 scales (null: 1).
+// [L, KH] float32 scales (null: 1); softcap: the logit soft-cap (0: off).
 extern "C" int kvc_paged_prefill(
     int dtype, const void* q, const void* k_pool, const void* v_pool,
     const void* page_tables, const void* q_starts, const void* kv_lens,
     const float* k_scales, const float* v_scales, void* out, int N,
     int layer, int num_pages, int KH, int G, int TP, int maxp, int Tq,
-    int window, float sm_scale, void* stream) {
+    int window, float sm_scale, float softcap, void* stream) {
   if (G < 1 || ROWS % G) return (int)cudaErrorInvalidValue;
   if (N == 0 || Tq == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kvc::kF32)
-    return launch_f32(q, k_pool, v_pool, page_tables, q_starts, kv_lens, out,
-                      N, layer, num_pages, KH, G, TP, maxp, Tq, window,
-                      sm_scale, s);
+    return (softcap > 0.f ? launch_f32<true> : launch_f32<false>)(
+        q, k_pool, v_pool, page_tables, q_starts, kv_lens, out, N, layer,
+        num_pages, KH, G, TP, maxp, Tq, window, sm_scale, softcap, s);
 #define KVC_MMA(P)                                                          \
   return launch_mma<P>(q, k_pool, v_pool, page_tables, q_starts, kv_lens,   \
                        k_scales, v_scales, out, N, layer, num_pages, KH, G, \
-                       TP, maxp, Tq, window, sm_scale, s)
+                       TP, maxp, Tq, window, sm_scale, softcap, s)
   switch (dtype) {
     case kvc::kBF16: KVC_MMA(__nv_bfloat16);
     case kvc::kI8: KVC_MMA(int8_t);

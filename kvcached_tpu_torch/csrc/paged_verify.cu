@@ -245,8 +245,8 @@ __global__ void __launch_bounds__(THREADS) verify_split_mma_kernel(
     }
     __syncthreads();  // this tile landed for every thread
     if (warp_live)  // a warp with no query row only copies
-      mma_attend_tile(qa, live, qpos, tile(k_buf, buf), tile(v_buf, buf), t0, nk,
-                      window, sm_scale, ksc, o, m, l);
+      mma_attend_tile<false>(qa, live, qpos, tile(k_buf, buf), tile(v_buf, buf), t0,
+                             nk, window, sm_scale, ksc, 0.f, o, m, l);  // no soft-capping
     __syncthreads();  // this buffer is consumed: the next copy may refill it
   }
 
@@ -328,8 +328,8 @@ __global__ void __launch_bounds__(THREADS) verify_split_f32_kernel(
       }
     }
     __syncthreads();
-    f32_attend_tile(q_s, k_s, v_s, p_s, m_s, l_s, a_s, acc, R, G, base, t0, nk,
-                    window, sm_scale);
+    f32_attend_tile<false>(q_s, k_s, v_s, p_s, m_s, l_s, a_s, acc, R, G, base, t0, nk,
+                           window, sm_scale, 0.f);  // no soft-capping
     __syncthreads();
   }
 

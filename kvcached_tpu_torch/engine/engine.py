@@ -21,9 +21,19 @@ Port of the single-device subset of ``kvcached_tpu/engine/engine.py``:
   transfer.
 - Engine blocks are pool pages (``block_tokens == page_tokens``); page
   tables hold physical page ids for the kernels.
+- **Layer groups** (the hybrid family): one :class:`KVCacheManager` per
+  group over the same :class:`DevicePagePool`, whose arena holds
+  ``layers_per_group`` layers, so pages are fungible across groups while
+  each group has its own block lists, page table, shm segment (``_g<id>``)
+  and page lifetime: a sliding-window group frees the pages that slid out
+  of its window, a full-attention group keeps them.  A model with one
+  group keeps 2-D tables; with G groups the decode tables are
+  ``[G, B, max_pages]``, a chunk's pages ``[G, n]`` and a batched
+  prefill's ``[N, G, n]``.  The prefix cache is off for several groups.
 
-The mesh, pipeline-parallel, quantized-pool, stateful and multi-group paths
-of the JAX engine are not ported yet.
+The mesh, pipeline-parallel and stateful paths of the JAX engine, layer
+groups of unequal size, and speculative decoding or byte pools on several
+groups are not ported yet.
 
 Sampling draws from ``torch.Generator`` s seeded from the engine step (and
 the request seed for first tokens), so an identical engine history
@@ -198,12 +208,13 @@ class RequestOutput:
 
 
 class Sequence:
-    def __init__(self, req: Request):
+    def __init__(self, req: Request, num_groups: int = 1):
         self.req = req
         self.tokens: list[int] = list(req.prompt)
-        # block ids from the KVCacheManager; None = a page that slid out of
-        # the attention window and was reclaimed
-        self.blocks: list[int | None] = []
+        # block ids from each layer group's KVCacheManager (one group for
+        # every family but the hybrid one); None = a page that slid out of
+        # the group's attention window and was reclaimed
+        self.blocks_g: list[list[int | None]] = [[] for _ in range(num_groups)]
         self.num_prefilled = 0
         self.stop_hit = False  # a stop STRING fired
         self.output_text: str | None = None
@@ -323,16 +334,32 @@ class LLMEngine:
                     "not guaranteed token-exact vs plain decode (near-tie "
                     "argmax may flip between the verify and decode reduction "
                     "orders); use float32 for exactness-critical serving", dt)
+        # layer groups (the hybrid family): group g's pages live in a shared
+        # arena of layers_per_group layers; other families have one group
+        self.group_windows: tuple = (getattr(self.adapter, "group_windows", None)
+                                     or (self.adapter.window,))
+        self.num_groups = len(self.group_windows)
+        #: leading axis of the page rows the model steps take: none for one
+        #: group (2-D tables), G for several
+        self._groups = (self.num_groups,) if self.num_groups > 1 else ()
+        if self.num_groups > 1 and ec.spec_decode:
+            raise NotImplementedError(
+                "spec_decode on layer groups (hybrid_verify_step, K4's soft-cap) is "
+                "not ported yet")
+        if self.num_groups > 1 and ec.kv_dtype not in ("bfloat16", "float32"):
+            raise NotImplementedError(
+                f"kv_dtype={ec.kv_dtype!r} on layer groups is not ported yet "
+                "(ROADMAP A11b: hybrid byte pools)")
         self.device = resolve_device(device)
         if params is None:
             params = self.adapter.init_params(seed=seed, device=self.device)
         elif params.device != self.device:
             raise ValueError(f"params live on {params.device}, engine on {self.device}")
         self.params = params
-        self.window = self.adapter.window
 
         self.kv_cfg = KVConfig(
-            num_layers=self.adapter.num_layers,
+            num_layers=(self.adapter.layers_per_group if self.num_groups > 1
+                        else self.adapter.num_layers),
             num_kv_heads=self.adapter.num_kv_heads,
             head_dim=self.adapter.head_dim,
             block_tokens=ec.page_tokens,  # block == page
@@ -359,13 +386,21 @@ class LLMEngine:
             self.quant_scales = tuple(
                 torch.full(shape, ec.kv_scale, dtype=torch.float32, device=self.device)
                 for _ in range(2))
-        self.manager = KVCacheManager(
-            self.kv_cfg, self.pool, ipc_name=ec.ipc_name, reserve_null_block=True)
+        # one manager per layer group over the same pool: pages fungible
+        # across groups, accounting and limits (shm segment _g<id>) per group
+        self.managers = [
+            KVCacheManager(
+                self.kv_cfg if g == 0 else KVConfig(**{**self.kv_cfg.__dict__, "group_id": g}),
+                self.pool, ipc_name=ec.ipc_name, reserve_null_block=True)
+            for g in range(self.num_groups)
+        ]
 
         self.max_pages_per_seq = ec.max_model_len // ec.page_tokens
         # sliding-window models reclaim pages mid-sequence; cached pages
-        # would dangle, so the prefix cache is forced off
-        enable_cache = ec.enable_prefix_caching and not self.window
+        # would dangle, so the prefix cache is forced off (hybrid models
+        # always have a windowed group)
+        enable_cache = (ec.enable_prefix_caching and self.num_groups == 1
+                        and not self.group_windows[0])
         self.prefix_cache = PrefixCache(
             ec.page_tokens, (ec.max_cached_tokens if enable_cache else 0))
         self.cache_namespace = self._stable_namespace()
@@ -437,7 +472,7 @@ class LLMEngine:
                 f"prompt+max_new_tokens exceeds max_model_len={self.cfg.max_model_len}"
             )
         # prompts longer than the largest bucket are served by chunked prefill
-        self._enqueue(Sequence(req))
+        self._enqueue(Sequence(req, self.num_groups))
         return req.req_id
 
     # ------------------------------------------------------ queue policies
@@ -475,62 +510,82 @@ class LLMEngine:
     def _blocks_needed(self, num_tokens: int) -> int:
         return -(-num_tokens // self.cfg.page_tokens)
 
-    def _alloc_blocks(self, need: int) -> list[int] | None:
-        """Allocate, reclaiming prefix-cache pages under pressure first."""
-        blocks = self.manager.alloc(need)
+    def _alloc_blocks(self, need: int, g: int = 0) -> list[int] | None:
+        """Allocate through group g's manager, reclaiming prefix-cache
+        pages under pressure first."""
+        mgr = self.managers[g]
+        blocks = mgr.alloc(need)
         if blocks is None and self.prefix_cache.num_evictable:
             evicted = self.prefix_cache.evict(need + 4)
             if evicted:
-                self.manager.free(evicted)
-                blocks = self.manager.alloc(need)
+                self.managers[0].free(evicted)
+                blocks = mgr.alloc(need)
         return blocks
 
     def _ensure_blocks(self, seq: Sequence, num_tokens: int) -> bool:
-        """Grow seq's blocks to cover ``num_tokens`` tokens (all or nothing)."""
+        """Grow seq's blocks in every group to cover ``num_tokens`` tokens.
+        All or nothing: on a group's failure, the pages just taken for
+        earlier groups are returned."""
         num_tokens = min(num_tokens, self.cfg.max_model_len)
-        need = self._blocks_needed(num_tokens) - len(seq.blocks)
-        if need <= 0:
-            return True
-        blocks = self._alloc_blocks(need)
-        if blocks is None:
-            return False
-        seq.blocks.extend(blocks)
+        target = self._blocks_needed(num_tokens)
+        taken: list[tuple[int, list[int]]] = []
+        for g in range(self.num_groups):
+            need = target - len(seq.blocks_g[g])
+            if need <= 0:
+                continue
+            blocks = self._alloc_blocks(need, g)
+            if blocks is None:
+                for gg, bs in taken:
+                    self.managers[gg].free(bs)
+                    del seq.blocks_g[gg][-len(bs):]
+                return False
+            seq.blocks_g[g].extend(blocks)
+            taken.append((g, blocks))
         return True
 
     def _reclaim_slid_pages(self, seq: Sequence) -> None:
-        """Sliding-window models free pages every token of which is below
-        the window of every future position."""
-        if not self.window:
-            return
-        win_start = len(seq.tokens) - self.window
-        if win_start <= 0:
-            return
-        last_dead_page = win_start // self.cfg.page_tokens  # exclusive
-        dead = [b for b in seq.blocks[:last_dead_page] if b is not None]
-        if dead:
-            self.manager.free(dead)
-            for j in range(last_dead_page):
-                seq.blocks[j] = None
+        """Sliding-window groups free the pages every token of which is
+        below the window of every future position; full-attention groups
+        keep theirs."""
+        for g, window in enumerate(self.group_windows):
+            if not window:
+                continue
+            win_start = len(seq.tokens) - window
+            if win_start <= 0:
+                continue
+            last_dead_page = win_start // self.cfg.page_tokens  # exclusive
+            row = seq.blocks_g[g]
+            dead = [b for b in row[:last_dead_page] if b is not None]
+            if dead:
+                self.managers[g].free(dead)
+                for j in range(min(last_dead_page, len(row))):
+                    row[j] = None
 
     def _free_seq(self, seq: Sequence, cache_kv: bool = True) -> None:
-        seq.blocks = [b for b in seq.blocks if b is not None]
-        if not seq.blocks:
+        # groups past the first never enter the prefix cache: free directly
+        for g in range(1, self.num_groups):
+            live = [b for b in seq.blocks_g[g] if b is not None]
+            if live:
+                self.managers[g].free(live)
+            seq.blocks_g[g] = []
+        blocks = [b for b in seq.blocks_g[0] if b is not None]
+        seq.blocks_g[0] = []
+        if not blocks:
             return
         if cache_kv and self.prefix_cache.enabled:
             # register full pages (prompt AND generated) before releasing;
             # the final token's KV is never written, so only pages whose
             # every slot is below len-1 are cacheable
             n_full = min(
-                (len(seq.tokens) - 1) // self.cfg.page_tokens, len(seq.blocks))
+                (len(seq.tokens) - 1) // self.cfg.page_tokens, len(blocks))
             if n_full:
                 keys = page_keys(
                     seq.tokens[: n_full * self.cfg.page_tokens],
                     self.cfg.page_tokens, self.cache_namespace)
-                self.prefix_cache.insert(keys[:n_full], seq.blocks[:n_full])
-        _retained, to_free = self.prefix_cache.release(seq.blocks)
+                self.prefix_cache.insert(keys[:n_full], blocks[:n_full])
+        _retained, to_free = self.prefix_cache.release(blocks)
         if to_free:
-            self.manager.free(to_free)
-        seq.blocks = []
+            self.managers[0].free(to_free)
 
     def _admit_running(self, need_fn) -> list:
         """Take the head of the running queue (up to max_batch) and ensure
@@ -569,14 +624,20 @@ class LLMEngine:
         logger.info("preempted request %d under memory pressure", seq.req.req_id)
         return True
 
-    def _phys_row(self, seq: Sequence) -> np.ndarray:
-        pt = self.manager.page_allocator.page_table
+    def _phys_row(self, seq: Sequence, g: int = 0) -> np.ndarray:
+        pt = self.managers[g].page_allocator.page_table
         row = np.zeros(self.max_pages_per_seq, np.int32)
-        for j, b in enumerate(seq.blocks):
+        for j, b in enumerate(seq.blocks_g[g]):
             # reclaimed (slid-out) pages point at the zero page; the kernels
             # never read below the window start
             row[j] = pt[b] if b is not None else 0
         return row
+
+    def _phys_rows(self, seq: Sequence) -> np.ndarray:
+        """The rows the model steps take: [max_pages] for one group,
+        [G, max_pages] for several."""
+        return np.stack([self._phys_row(seq, g) for g in range(self.num_groups)]).reshape(
+            self._groups + (self.max_pages_per_seq,))
 
     def _bucket_len(self, n: int) -> int:
         for b in self.cfg.prefill_buckets:
@@ -598,13 +659,13 @@ class LLMEngine:
                 dropped = hits.pop()
                 _, to_free = self.prefix_cache.release([dropped])
                 if to_free:
-                    self.manager.free(to_free)
-        seq.blocks = list(hits)
+                    self.managers[0].free(to_free)
+        seq.blocks_g[0] = list(hits)
         if not self._ensure_blocks(seq, plen + 1):
             _, to_free = self.prefix_cache.release(hits)
             if to_free:
-                self.manager.free(to_free)
-            seq.blocks = []
+                self.managers[0].free(to_free)
+            seq.blocks_g[0] = []
             return False
         seq.num_prefilled = len(hits) * P  # prefill progress (tokens written)
         return True
@@ -616,7 +677,7 @@ class LLMEngine:
         P = self.cfg.page_tokens
         plen = seq.prompt_len
         q_start = seq.num_prefilled
-        phys = self._phys_row(seq)
+        phys = self._phys_rows(seq)  # [max_pages], or [G, max_pages]
         this_len = min(plen - q_start, max(self.cfg.prefill_buckets))
         T = self._bucket_len(this_len)
         assert T % P == 0, "prefill buckets must be multiples of page_tokens"
@@ -625,8 +686,8 @@ class LLMEngine:
         positions = q_start + np.arange(T, dtype=np.int32)
         start_page = q_start // P
         n_real = -(-this_len // P)
-        chunk_pages = np.zeros(T // P, np.int32)
-        chunk_pages[:n_real] = phys[start_page : start_page + n_real]
+        chunk_pages = np.zeros(phys.shape[:-1] + (T // P,), np.int32)
+        chunk_pages[..., :n_real] = phys[..., start_page : start_page + n_real]
         logits, _, _ = self.adapter.prefill_step(
             self.params, self._dev(tokens), self._dev(positions),
             self.k_pools, self.v_pools, self._dev(chunk_pages),
@@ -679,8 +740,8 @@ class LLMEngine:
         N = len(seqs)
         tokens = np.zeros((N, T), np.int32)
         positions = np.tile(np.arange(T, dtype=np.int32), (N, 1))
-        chunk_pages = np.zeros((N, T // P), np.int32)
-        page_tables = np.zeros((N, self.max_pages_per_seq), np.int32)
+        chunk_pages = np.zeros((N,) + self._groups + (T // P,), np.int32)
+        page_tables = np.zeros((N,) + self._groups + (self.max_pages_per_seq,), np.int32)
         q_starts = np.zeros(N, np.int32)
         true_lens = np.zeros(N, np.int32)
         for i, seq in enumerate(seqs):
@@ -688,10 +749,10 @@ class LLMEngine:
             this_len = seq.prompt_len - q_start
             tokens[i, :this_len] = seq.req.prompt[q_start:]
             positions[i] += q_start
-            phys = self._phys_row(seq)
+            phys = self._phys_rows(seq)
             start_page = q_start // P
             n_real = -(-this_len // P)
-            chunk_pages[i, :n_real] = phys[start_page : start_page + n_real]
+            chunk_pages[i, ..., :n_real] = phys[..., start_page : start_page + n_real]
             page_tables[i] = phys
             q_starts[i] = q_start
             true_lens[i] = this_len
@@ -744,16 +805,22 @@ class LLMEngine:
         j consumes input token j at position seq_lens0 + j.  Steps past a
         row's cap (``max_lens``; 0 for padded rows) are routed to the zero
         page, where the kernel discards the write, and their lengths are
-        clamped.  Returns the sampled tokens [K, B] on the host."""
+        clamped.  ``page_tables`` is [B, max_pages], or [G, B, max_pages]
+        for layer groups (each group's slots from its own table).  Returns
+        the sampled tokens [K, B] on the host."""
         P = self.cfg.page_tokens
         B = tokens0.shape[0]
         raw = seq_lens0[None] + np.arange(K, dtype=np.int32)[:, None] + 1  # [K, B]
         seq_lens = np.minimum(raw, max_lens[None])
         positions = np.maximum(seq_lens - 1, 0)
+        tables3 = page_tables.reshape((-1,) + page_tables.shape[-2:])  # [G, B, max_pages]
         slot_pages = np.where(
-            raw > max_lens[None], 0,
-            page_tables[np.arange(B)[None], positions // P])
-        plan = self._dev(np.stack([positions, slot_pages, positions % P, seq_lens]))
+            raw[None] > max_lens[None, None], 0,
+            tables3[:, np.arange(B)[None], positions // P])  # [G, K, B]
+        # rows: positions, offsets, lengths, then each group's slot pages;
+        # step j's slots are plan[3:, j], one [B] row a group
+        plan = self._dev(np.concatenate(
+            [np.stack([positions, positions % P, seq_lens]), slot_pages]))
         tables = self._dev(page_tables)
         dev = self.device
         temps_t = torch.as_tensor(temps).to(dev)
@@ -764,9 +831,10 @@ class LLMEngine:
         out = []
         scales = self._scales_kw
         for j in range(K):
+            slots = plan[3:, j].reshape(self._groups + (B,))
             logits, _, _ = self.adapter.decode_step(
                 self.params, tokens, plan[0, j], self.k_pools, self.v_pools,
-                tables, plan[1, j], plan[2, j], plan[3, j], **scales,
+                tables, slots, plan[1, j], plan[2, j], **scales,
             )
             tokens = _sample_tokens(logits, temps_t, top_ks_t, top_ps_t, gen,
                                     filters=filters, sampled=sampled)
@@ -789,7 +857,7 @@ class LLMEngine:
             return
         tokens0 = np.zeros(B, np.int32)
         seq_lens0 = np.zeros(B, np.int32)
-        page_tables = np.zeros((B, self.max_pages_per_seq), np.int32)
+        page_tables = np.zeros(self._groups + (B, self.max_pages_per_seq), np.int32)
         temps = np.zeros(B, np.float32)
         top_ks = np.zeros(B, np.int64)
         top_ps = np.ones(B, np.float32)
@@ -797,7 +865,7 @@ class LLMEngine:
         for i, seq in enumerate(batch):
             tokens0[i] = seq.tokens[-1]
             seq_lens0[i] = len(seq.tokens) - 1  # KV written so far
-            page_tables[i] = self._phys_row(seq)
+            page_tables[..., i, :] = self._phys_rows(seq)
             sp = seq.req.sampling
             temps[i] = sp.temperature
             top_ks[i] = sp.top_k
@@ -1021,12 +1089,16 @@ class LLMEngine:
             output_text=seq.output_text))
 
     def _can_admit(self, seq: Sequence) -> bool:
-        """Admission watermark: room for the prompt plus one decode horizon
-        plus a page of margin (prevents admit→grow→preempt churn)."""
-        need = self._blocks_needed(
-            seq.prompt_len + self.cfg.decode_horizon) + 1 - len(seq.blocks)
-        avail = self.manager.available_size() + self.prefix_cache.num_evictable
-        return avail >= need
+        """Admission watermark: room in every group for the prompt plus one
+        decode horizon plus a page of margin (prevents admit→grow→preempt
+        churn)."""
+        target = self._blocks_needed(seq.prompt_len + self.cfg.decode_horizon) + 1
+        for g in range(self.num_groups):
+            avail = self.managers[g].available_size() + (
+                self.prefix_cache.num_evictable if g == 0 else 0)
+            if avail < target - len(seq.blocks_g[g]):
+                return False
+        return True
 
     def step(self) -> None:
         """One scheduler iteration: one prefill chunk, or one decode
@@ -1061,7 +1133,8 @@ class LLMEngine:
             if not self.running:
                 # nothing running and nothing admissible: pick up a resize
                 # target via a no-op alloc and wait for operator action
-                self.manager.alloc(0)
+                for m in self.managers:
+                    m.alloc(0)
                 time.sleep(0.01)
                 return
         if self.running:
@@ -1083,15 +1156,16 @@ class LLMEngine:
     @property
     def ipc_name(self) -> str | None:
         """The shm control-plane segment (``kvctl limit`` target)."""
-        tracker = self.manager._tracker
+        tracker = self.managers[0]._tracker
         return tracker.ipc_name if tracker is not None else None
 
     def kv_metrics(self) -> dict:
         out = {
-            "mapped_bytes": self.manager.get_mapped_memory_size(),
-            "in_use_pages": self.manager.page_allocator.num_in_use,
-            "reserved_pages": self.manager.page_allocator.num_reserved,
-            "available_blocks": self.manager.available_size(),
+            "mapped_bytes": sum(m.get_mapped_memory_size() for m in self.managers),
+            "in_use_pages": sum(m.page_allocator.num_in_use for m in self.managers),
+            "reserved_pages": sum(m.page_allocator.num_reserved for m in self.managers),
+            # what gates admission: the scarcest group
+            "available_blocks": min(m.available_size() for m in self.managers),
             "running": len(self.running),
             "waiting": len(self.waiting),
             "prefilling": int(self._prefilling is not None),
@@ -1124,7 +1198,15 @@ class LLMEngine:
                 out["spec"]["gamma"] = self._spec_gamma_cur
                 out["spec"]["acceptance_ema"] = self._spec_ema
                 out["spec"]["cooldown"] = self._spec_cooldown
+        if self.num_groups > 1:
+            out["groups"] = [
+                {"window": self.group_windows[g],
+                 "in_use_pages": self.managers[g].page_allocator.num_in_use,
+                 "mapped_bytes": self.managers[g].get_mapped_memory_size()}
+                for g in range(self.num_groups)
+            ]
         return out
 
     def shutdown(self) -> None:
-        self.manager.shutdown()
+        for m in self.managers:
+            m.shutdown()

@@ -1,5 +1,13 @@
-"""Model families served by the port (the Llama and MLA families so far)."""
+"""Model families served by the port (the Llama, MLA and hybrid families so far)."""
 
+from .hybrid import (
+    HybridConfig,
+    HybridModel,
+    hybrid_decode_step,
+    hybrid_prefill_batch_step,
+    hybrid_prefill_step,
+    init_hybrid_params,
+)
 from .llama import (
     LlamaConfig,
     LlamaModel,
@@ -19,6 +27,12 @@ from .mla import (
 )
 
 __all__ = [
+    "HybridConfig",
+    "HybridModel",
+    "hybrid_decode_step",
+    "hybrid_prefill_batch_step",
+    "hybrid_prefill_step",
+    "init_hybrid_params",
     "LlamaConfig",
     "LlamaModel",
     "init_llama_params",

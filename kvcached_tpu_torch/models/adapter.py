@@ -1,10 +1,11 @@
 """Model adapters: the engine↔model contract.
 
 Port of ``kvcached_tpu/models/adapter.py`` for the Llama family (Llama,
-Mistral, Qwen2, Qwen3) and the MLA family.  An adapter gives the engine the
-KV geometry for the pool, ``init_params``, and the step functions over the
-paged pool.  The other families (hybrid layer groups, hybrid-linear) are
-not ported yet: :func:`as_adapter` raises ``NotImplementedError`` for them.
+Mistral, Qwen2, Qwen3), the MLA family and the hybrid family of equal layer
+groups (Gemma2).  An adapter gives the engine the KV geometry for the pool,
+``init_params``, and the step functions over the paged pool.  The
+hybrid-linear family is not ported yet: :func:`as_adapter` raises
+``NotImplementedError`` for it.
 """
 
 from __future__ import annotations
@@ -125,8 +126,63 @@ class MLAAdapter:
         return mla_verify_step(params, self.cfg, *args, **kw)
 
 
+@dataclass
+class HybridAdapter:
+    """Full-attention and sliding-window layer groups of equal layer count
+    over one shared arena of ``layers_per_group`` layers: the engine keeps
+    one ``KVCacheManager`` and one page table per group (``group_windows``)
+    over the same pool."""
+
+    cfg: Any  # HybridConfig
+
+    def __post_init__(self):
+        c = self.cfg
+        if not c.equal_groups:
+            raise NotImplementedError(
+                f"unequal layer groups {c.group_layer_counts} (per-group arenas) are "
+                "not ported yet (ROADMAP A11b)")
+        self.vocab_size = c.vocab_size
+        self.num_layers = c.num_layers
+        self.num_kv_heads = c.num_kv_heads
+        self.head_dim = c.head_dim
+        self.num_kv_buffers = 2
+        self.window = None  # windows are per group, not global
+        self.group_windows = c.group_windows
+        self.layers_per_group = c.layers_per_group
+
+    def init_params(self, *, seed: int = 0, device=None):
+        from .hybrid import init_hybrid_params
+
+        return init_hybrid_params(self.cfg, seed=seed, device=device)
+
+    def decode_step(self, params, *args, **kw):
+        """Tables [G, B, max_pages], slots [G, B]."""
+        from .hybrid import hybrid_decode_step
+
+        return hybrid_decode_step(params, self.cfg, *args, **kw)
+
+    def prefill_step(self, params, *args, **kw):
+        """Chunk pages [G, n], table [G, max_pages]."""
+        from .hybrid import hybrid_prefill_step
+
+        return hybrid_prefill_step(params, self.cfg, *args, **kw)
+
+    def prefill_batch_step(self, params, *args, **kw):
+        """Chunk pages [N, G, n], tables [N, G, max_pages]; identical to N
+        serial prefill_step calls."""
+        from .hybrid import hybrid_prefill_batch_step
+
+        return hybrid_prefill_batch_step(params, self.cfg, *args, **kw)
+
+    def verify_step(self, params, *args, **kw):
+        raise NotImplementedError(
+            "speculative decoding on the hybrid family (hybrid_verify_step, K4's "
+            "soft-cap) is not ported yet")
+
+
 def as_adapter(model) -> ModelAdapter:
-    """Accept a Llama or MLA config, or an adapter."""
+    """Accept a Llama, MLA or hybrid config, or an adapter."""
+    from .hybrid import HybridConfig
     from .llama import LlamaConfig
     from .mla import MLAConfig
 
@@ -134,9 +190,11 @@ def as_adapter(model) -> ModelAdapter:
         return LlamaAdapter(model)
     if isinstance(model, MLAConfig):
         return MLAAdapter(model)
-    if isinstance(model, (LlamaAdapter, MLAAdapter)):
+    if isinstance(model, HybridConfig):
+        return HybridAdapter(model)
+    if isinstance(model, (LlamaAdapter, MLAAdapter, HybridAdapter)):
         return model
     raise NotImplementedError(
-        f"{type(model).__name__}: only the Llama and MLA families are ported so "
-        "far (hybrid and hybrid-linear models are not)"
+        f"{type(model).__name__}: only the Llama, MLA and hybrid families are "
+        "ported so far (hybrid-linear models are not)"
     )

@@ -4,7 +4,8 @@ PyTorch versions.
 ``KERNELS`` names each kernel wrapper; :func:`launch_counts` and
 :func:`reset_launch_counts` read and zero the wrappers' launch counters,
 :func:`launch_counts_by_dtype` reads them by pool type (the int8 and fp8
-modes of K1-K4 are their launches on byte pools).
+modes of K1-K4 are their launches on byte pools; the soft-capped launches
+of K1 and K3 count under the pool type's name plus ``+softcap``).
 """
 
 from .paged_attention import (

@@ -25,7 +25,8 @@ SOURCES = ("paged_decode", "prefill_write", "paged_prefill", "paged_verify", "ml
 HEADERS = ("kv_common.cuh",)
 #: no --use_fast_math: it makes the int8 writers' ``x / scale`` an
 #: approximate divide, and the pools would no longer be bit-exact with the
-#: reference's
+#: reference's; and it makes the soft-cap's ``tanhf`` the approximate one,
+#: ~0.025 off in a score capped at 50
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
@@ -37,11 +38,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry points and their argument types, by library (pointers and the
 #: stream as c_void_p, so 64-bit addresses are passed whole)
 _SIGNATURES = {
-    "paged_decode": {"kvc_paged_decode": [_I] + [_P] * 13 + [_I] * 8 + [_F, _I, _P]},
+    "paged_decode": {"kvc_paged_decode": [_I] + [_P] * 13 + [_I] * 8 + [_F, _F, _I, _P]},
     "prefill_write": {"kvc_prefill_write": [_P] * 5 + [_I] * 5 + [_P],
                       "kvc_prefill_write_quant": [_I] + [_P] * 7 + [_I] * 5 + [_P],
                       "kvc_prefill_write_single": [_P] * 3 + [_I] * 5 + [_P]},
-    "paged_prefill": {"kvc_paged_prefill": [_I] + [_P] * 9 + [_I] * 9 + [_F, _P]},
+    "paged_prefill": {"kvc_paged_prefill": [_I] + [_P] * 9 + [_I] * 9 + [_F, _F, _P]},
     "paged_verify": {"kvc_paged_verify": [_I] + [_P] * 13 + [_I] * 9 + [_F, _P]},
     "mla_attend": {"kvc_mla_attend": [_I] + [_P] * 11 + [_I] * 9 + [_F, _P],
                    "kvc_mla_wave_blocks": [_I, _I, ctypes.POINTER(_I)]},

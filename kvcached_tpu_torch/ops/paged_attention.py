@@ -41,11 +41,14 @@ scores, the V scale into the output; a latent pool has one scale a layer,
 ``[L, 1]``, its K scale, which serves the values too), e4m3 the float32
 value rounded to nearest even with NaN past ±464 (:func:`to_e4m3`); their
 matmuls take bf16 operands with float32 accumulation, as the TPU kernels'
-do.  Logit soft-capping, the MLA mode of the read-only
-:func:`paged_attention`, and the MLA mode with several kv heads or a window
-raise ``NotImplementedError``: they are not ported yet.  Each wrapper counts its
-launches in ``<wrapper>.launches`` and by pool type in
-``<wrapper>.launches_by_dtype``.
+do.  Logit soft-capping (Gemma2's ``attn_logit_softcapping``: ``cap *
+tanh(score / cap)`` before the mask) is ported in K1 and K3
+(``logit_softcap``, on every pool type); in K1r, K4 and the MLA modes it
+raises ``NotImplementedError``, as do the MLA mode of the read-only
+:func:`paged_attention` and the MLA mode with several kv heads or a window:
+they are not ported yet.  Each wrapper counts its launches in
+``<wrapper>.launches`` and by pool type in ``<wrapper>.launches_by_dtype``,
+soft-capped launches under the pool type's name plus ``+softcap``.
 """
 
 from __future__ import annotations
@@ -99,18 +102,40 @@ def _unsupported(mla_v_dim=None, logit_softcap=None, pool_dtype=None) -> None:
     if mla_v_dim is not None:
         raise NotImplementedError("the MLA single-buffer mode is not ported yet")
     if logit_softcap is not None:
-        raise NotImplementedError("logit soft-capping is not ported yet")
+        raise NotImplementedError(
+            "logit soft-capping is ported in K1 (paged_attention_decode) and K3 "
+            "(paged_prefill_attention_batch) only, not yet here")
     if pool_dtype is not None and pool_dtype not in KERNEL_DTYPES:
         raise NotImplementedError(
             f"{pool_dtype} pools are not ported yet "
             "(float32, bfloat16, int8, float8_e4m3fn)")
 
 
-def _count(wrapper, dtype) -> None:
-    """One launch of ``wrapper``'s kernel on a ``dtype`` pool."""
+def _count(wrapper, dtype, softcap=0.0) -> None:
+    """One launch of ``wrapper``'s kernel on a ``dtype`` pool, counted by
+    pool type under ``"<type>+softcap"`` when it soft-capped."""
     wrapper.launches += 1
-    name = str(dtype).replace("torch.", "")
+    name = str(dtype).replace("torch.", "") + ("+softcap" if softcap else "")
     wrapper.launches_by_dtype[name] = wrapper.launches_by_dtype.get(name, 0) + 1
+
+
+def _softcap_arg(logit_softcap) -> float:
+    """The kernels' soft-cap argument: the cap as a positive float, 0 for
+    none."""
+    if logit_softcap is None:
+        return 0.0
+    cap = float(logit_softcap)
+    if not cap > 0:
+        raise ValueError(f"logit_softcap must be positive, got {logit_softcap}")
+    return cap
+
+
+def _soft_cap(s, logit_softcap):
+    """float32 scores ``s`` after logit soft-capping, as the reference
+    computes it: ``s * (1 / cap)``, tanh, times ``cap`` (None: unchanged)."""
+    if logit_softcap is None:
+        return s
+    return logit_softcap * torch.tanh(s * (1.0 / logit_softcap))
 
 
 def _head_scales(scales, pool_dtype, layer):
@@ -303,13 +328,14 @@ def paged_attention_decode_plain(
     q, k_pool, v_pool, page_tables, seq_lens, layer,
     k_new, v_new, slot_pages, slot_offsets,
     *, sm_scale=None, window=None, write_kv=True, mla_v_dim=None,
-    k_scales=None, v_scales=None,
+    k_scales=None, v_scales=None, logit_softcap=None,
 ):
     """Plain PyTorch version of K1 (``write_kv=True``), K1r and, with
     ``mla_v_dim``, K5's decode form (``v_pool`` and ``v_new`` unused): the
     same function as the CUDA kernels, in dense tensor ops.  Byte pools
     quantize the written token; int8 ``k_scales``/``v_scales`` [L, KH] (in
-    the MLA mode the K scales serve the values too)."""
+    the MLA mode the K scales serve the values too); ``logit_softcap`` caps
+    the scores before the mask."""
     B, QH, D = q.shape
     KH = k_pool.shape[2]
     G = QH // KH
@@ -330,6 +356,7 @@ def paged_attention_decode_plain(
     s = torch.matmul(qg, k.transpose(-1, -2)) * sm_scale  # [B, KH, G, S]
     if ksc is not None:
         s = s * ksc[:, None, None]
+    s = _soft_cap(s, logit_softcap)
     pos = torch.arange(k.shape[2], device=q.device)[None]
     sl = seq_lens.long()[:, None]
     valid = pos < sl
@@ -342,7 +369,7 @@ def paged_attention_decode_plain(
 
 def _decode_launch(q, k_pool, v_pool, page_tables, seq_lens, layer, k_new,
                    v_new, slot_pages, slot_offsets, sm_scale, window, write_kv,
-                   k_scales=None, v_scales=None):
+                   k_scales=None, v_scales=None, softcap=0.0):
     L, P, KH, TP, D = _require_pools(k_pool, v_pool)
     B, QH, Dq = q.shape
     if Dq != D or QH % KH:
@@ -387,7 +414,7 @@ def _decode_launch(q, k_pool, v_pool, page_tables, seq_lens, layer, k_new,
         KERNEL_DTYPES[dt], qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_tables.data_ptr(), seq_lens.data_ptr(), *ptrs, _ptr(ks), _ptr(vs),
         out.data_ptr(), scratch.data_ptr(), B, layer, P, KH, G, TP, maxp,
-        int(window or 0), float(sm_scale), int(write_kv), _stream(q),
+        int(window or 0), float(sm_scale), float(softcap), int(write_kv), _stream(q),
     )
     _build.check(rc, "paged_decode")
     return out.to(q.dtype)
@@ -425,6 +452,10 @@ def paged_attention_decode(
     ``k_new``/``v_new`` come unquantized and the kernel quantizes them on
     write; the output is in q's type.
 
+    ``logit_softcap``: Gemma2's attention soft-cap, ``cap * tanh(score /
+    cap)`` on the scaled scores before the mask, on every pool type (one
+    ``tanhf`` a score on the CUDA cores).
+
     ``mla_v_dim``: K5's decode form (``_decode_write_kernel_mla``).
     ``k_pool`` is the single latent pool, ``k_new`` the latent entries;
     scores use all lanes, values the first ``mla_v_dim``; ``v_pool`` and
@@ -443,17 +474,18 @@ def paged_attention_decode(
                 q, k_pool, page_tables, seq_lens, layer, k_new, slot_pages,
                 slot_offsets, sm_scale=sm_scale, mla_v_dim=mla_v_dim, k_scales=ks)
         return out, k_pool, None
-    _unsupported(mla_v_dim, logit_softcap, k_pool.dtype)
+    _unsupported(pool_dtype=k_pool.dtype)
+    cap = _softcap_arg(logit_softcap)
     if _on_cpu(q, k_pool, v_pool, page_tables, seq_lens, k_new, v_new,
                slot_pages, slot_offsets):
         return paged_attention_decode_plain(
             q, k_pool, v_pool, page_tables, seq_lens, layer, k_new, v_new,
             slot_pages, slot_offsets, sm_scale=sm_scale, window=window,
-            k_scales=k_scales, v_scales=v_scales)
+            k_scales=k_scales, v_scales=v_scales, logit_softcap=logit_softcap)
     out = _decode_launch(q, k_pool, v_pool, page_tables, seq_lens, layer,
                          k_new, v_new, slot_pages, slot_offsets, sm_scale,
-                         window, True, k_scales, v_scales)
-    _count(paged_attention_decode, k_pool.dtype)
+                         window, True, k_scales, v_scales, cap)
+    _count(paged_attention_decode, k_pool.dtype, cap)
     return out, k_pool, v_pool
 
 

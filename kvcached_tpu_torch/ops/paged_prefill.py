@@ -15,7 +15,9 @@ bit-identical to N serial calls; rows with ``kv_len == 0`` give zeros.
 
 Byte pools (int8 with ``k_scales``/``v_scales`` [L, KH], or e4m3) multiply
 bf16 operands with float32 accumulation and give the output in q's type,
-as in :mod:`.paged_attention`.
+as in :mod:`.paged_attention`.  ``logit_softcap`` soft-caps the scores
+(Gemma2), on every pool type; soft-capped launches are counted under
+``"<type>+softcap"``.
 
 The MLA mode (``mla_v_dim``, K3m: the same Pallas kernel over the single
 latent pool) launches ``csrc/mla_attend.cu`` through
@@ -49,6 +51,8 @@ from .paged_attention import (
     _require_aligned,
     _require_pools,
     _scales_arg,
+    _soft_cap,
+    _softcap_arg,
     _stream,
     _unsupported,
     mla_attend_launch,
@@ -62,11 +66,13 @@ KERNEL_ROWS = 64
 def paged_prefill_attention_batch_plain(
     q, k_pool, v_pool, page_tables, q_starts, kv_lens, layer=0,
     *, sm_scale=None, window=None, mla_v_dim=None, k_scales=None, v_scales=None,
+    logit_softcap=None,
 ):
     """Plain PyTorch version of K3 and, with ``mla_v_dim``, of K3m (values
     from the first ``mla_v_dim`` lanes of ``k_pool``; ``v_pool`` unused).
     int8 pools take ``k_scales``/``v_scales`` [L, KH] (in the MLA mode the
-    K scales serve the values too)."""
+    K scales serve the values too); ``logit_softcap`` caps the scores before
+    the mask."""
     N, T, QH, D = q.shape
     KH = k_pool.shape[2]
     G = QH // KH
@@ -87,6 +93,7 @@ def paged_prefill_attention_batch_plain(
     s = torch.matmul(qg, k.transpose(-1, -2)) * sm_scale  # [N, KH, R, S]
     if ksc is not None:
         s = s * ksc[:, None, None]
+    s = _soft_cap(s, logit_softcap)
     dev = q.device
     q_pos = q_starts.long()[:, None] + torch.arange(T * G, device=dev)[None] // G
     kv = torch.arange(k.shape[2], device=dev)[None, None, :]
@@ -129,6 +136,11 @@ def paged_prefill_attention_batch(
     Byte pools: bf16 q, the K/V widened to bf16 tiles, the int8 scales
     folded into the scores and the output.
 
+    ``logit_softcap``: Gemma2's attention soft-cap, ``cap * tanh(score /
+    cap)`` on the scaled scores before the causal mask, on every pool type
+    (one ``tanhf`` a score on the CUDA cores, beside the tensor cores'
+    products).
+
     ``mla_v_dim``: K3m, the MLA mode over the single latent pool (values
     its first ``mla_v_dim`` lanes, ``v_pool`` ignored; an int8 latent pool
     takes ``k_scales`` [L, 1], which serve the values too)."""
@@ -141,11 +153,13 @@ def paged_prefill_attention_batch(
         return paged_prefill_attention_batch_mla(
             q, k_pool, page_tables, q_starts, kv_lens, layer, sm_scale=sm_scale,
             mla_v_dim=mla_v_dim, k_scales=ks)
-    _unsupported(mla_v_dim, logit_softcap, k_pool.dtype)
+    _unsupported(pool_dtype=k_pool.dtype)
+    cap = _softcap_arg(logit_softcap)
     if _on_cpu(q, k_pool, v_pool, page_tables, q_starts, kv_lens):
         return paged_prefill_attention_batch_plain(
             q, k_pool, v_pool, page_tables, q_starts, kv_lens, layer,
-            sm_scale=sm_scale, window=window, k_scales=k_scales, v_scales=v_scales)
+            sm_scale=sm_scale, window=window, k_scales=k_scales, v_scales=v_scales,
+            logit_softcap=logit_softcap)
     L, P, KH, TP, D = _require_pools(k_pool, v_pool)
     N, T, QH, Dq = q.shape
     if Dq != D or QH % KH:
@@ -174,10 +188,10 @@ def paged_prefill_attention_batch(
         KERNEL_DTYPES[dt], qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_tables.data_ptr(), q_starts.data_ptr(), kv_lens.data_ptr(),
         _ptr(ks), _ptr(vs), out.data_ptr(), N, layer, P, KH, G, TP, maxp, T,
-        int(window or 0), float(sm_scale), _stream(q),
+        int(window or 0), float(sm_scale), cap, _stream(q),
     )
     _build.check(rc, "paged_prefill")
-    _count(paged_prefill_attention_batch, dt)
+    _count(paged_prefill_attention_batch, dt, cap)
     return out.to(q.dtype)
 
 

@@ -1,9 +1,11 @@
 """Parameters from the JAX package's layout.
 
-:func:`params_from_jax` turns the JAX package's Llama or MLA parameter
-tree, as numpy arrays (``jax.tree.map(np.asarray, params)``), into the
-port's :class:`~kvcached_tpu_torch.models.llama.LlamaModel` or
-:class:`~kvcached_tpu_torch.models.mla.MLAModel`.  Both packages use the
+:func:`params_from_jax` turns the JAX package's Llama, MLA or hybrid
+parameter tree, as numpy arrays (``jax.tree.map(np.asarray, params)``), into
+the port's :class:`~kvcached_tpu_torch.models.llama.LlamaModel`,
+:class:`~kvcached_tpu_torch.models.mla.MLAModel` or
+:class:`~kvcached_tpu_torch.models.hybrid.HybridModel` (the Llama tree plus
+the Gemma post norms and the optional q/k norms and biases).  Both packages use the
 same names and layouts (stacked layers, input-major projections), so the
 two compute the same function on the same numbers.  This module imports
 neither JAX nor the JAX package: it takes plain numpy.
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from .device.pool import resolve_device
+from .models.hybrid import HybridConfig, HybridModel
 from .models.llama import LlamaConfig, LlamaModel
 from .models.mla import MLAConfig, MLAModel
 
@@ -26,15 +29,15 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)  # a copy
 
 
-def params_from_jax(tree: dict, cfg: LlamaConfig | MLAConfig, *,
+def params_from_jax(tree: dict, cfg: LlamaConfig | MLAConfig | HybridConfig, *,
                     device=None) -> LlamaModel:
     """``{"embed", "layers": {...}, "final_norm", "lm_head"}`` of numpy
     arrays → :class:`LlamaModel` (an :class:`MLAModel` for an
-    :class:`MLAConfig`) on ``device`` (default: the card) in
-    ``cfg.dtype``."""
+    :class:`MLAConfig`, a :class:`HybridModel` for a :class:`HybridConfig`)
+    on ``device`` (default: the card) in ``cfg.dtype``."""
     dev = resolve_device(device)
     dt = cfg.tdtype
-    model = MLAModel if isinstance(cfg, MLAConfig) else LlamaModel
+    model = {MLAConfig: MLAModel, HybridConfig: HybridModel}.get(type(cfg), LlamaModel)
     return model(
         cfg,
         embed=_tensor(tree["embed"], dt, dev),

@@ -46,7 +46,7 @@ def test_grew_shrank_correct_through_shm(toy):
              "shm.update_kv_cache_limit(sys.argv[1], int(sys.argv[2]))",
              name, str(limit)], check=True, timeout=120)
         again = eng.generate(prompts, sp)
-        eng.manager.trim()
+        eng.managers[0].trim()
         assert eng.kv_metrics()["mapped_bytes"] <= limit < peak, "SHRANK"
     finally:
         eng.shutdown()

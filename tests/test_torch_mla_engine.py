@@ -119,7 +119,7 @@ def test_live_limit_shrinks_and_grows_the_latent_pool(served):
     eng = _engine(cfg, params, ipc_name=name, enable_prefix_caching=False)
     page_bytes = eng.kv_cfg.page_bytes
     assert page_bytes == cfg.num_layers * 32 * cfg.cache_head_dim * 4  # one buffer
-    alloc = eng.manager.page_allocator
+    alloc = eng.managers[0].page_allocator
 
     def set_limit(pages):
         shm.update_kv_cache_limit(eng.ipc_name, pages * page_bytes)
@@ -127,7 +127,7 @@ def test_live_limit_shrinks_and_grows_the_latent_pool(served):
         while alloc.limit_pages != pages:
             assert time.time() < deadline, f"limit {pages} never taken up"
             time.sleep(0.02)
-            eng.manager.alloc(0)
+            eng.managers[0].alloc(0)
 
     try:
         ids = [eng.add_request(p, sp) for p in prompts]
