@@ -25,13 +25,13 @@ Phases (each prints its own lines; any failure exits nonzero):
    bit-exact, outputs within 2e-2 at bf16 and 1e-4 at float32 (TF32 off);
    each kernel's device time (calls back to back) and its time a call from
    the host, the plain version's and SDPA's, beside the kernel's bound;
-   and the soft-capped mode of K1 and K3 at Gemma-2-27B's widths (KH=16,
-   QH=32, sm_scale 1/12, cap 50, windows none, 4096 and 1024) on bf16,
-   float32 and int8 pools, q scaled so that the scores reach several times
-   the cap: within the same tolerances, while the uncapped plain output
-   must lie more than ten tolerances away (the control), and the bf16 rows
-   timed beside the same kernel uncapped and beside flex_attention with
-   the cap as its score_mod;
+   and the soft-capped mode of K1, K1r, K3 and K4 at Gemma-2-27B's widths
+   (KH=16, QH=32, sm_scale 1/12, cap 50, windows none, 4096 and 1024) on
+   bf16, float32, int8 and e4m3 pools, q scaled so that the scores reach
+   several times the cap: within the same tolerances, while the uncapped
+   plain output must lie more than ten tolerances away (the control), and
+   the bf16 rows and K4's byte rows timed beside the same kernel uncapped
+   and beside flex_attention with the cap as its score_mod;
 4. engine: ``LLMEngine`` serves Llama-3-8B at full width (32 layers, bf16,
    weights drawn on the card from a seed) for 8 requests: a prefix-cache
    hit, a prompt longer than the largest prefill bucket, batched prefill,
@@ -98,7 +98,18 @@ Phases (each prints its own lines; any failure exits nonzero):
    the full group keeps all of its own, both groups' pages from one arena,
    tok/s and one decode dispatch under torch.profiler; (c)
    GREW/SHRANK/CORRECT through a limit on the full group's segment
-   (``_g1``).  ``torch.cuda.memory_allocated`` is logged before each load.
+   (``_g1``); (d) float32 spec decode at 4 layers: greedy tokens identical
+   to plain decode; (e) the bf16 model at 46 layers serving phase 4's mix
+   without and with spec decode (soft-capped K4 > 0 over the spec run),
+   tok/s, tokens per verify iteration, one spec dispatch under
+   torch.profiler; (f) int8 and e4m3 arenas, phase 9's checks
+   (``phase_byte_pools``: pages per 8 GiB budget, twice bf16's; phase 4's
+   mix, soft-capped K1 and K3 and K2 of each mode > 0; the 4-layer float32
+   logits gate with the byte pool's own effect above it, spec tokens equal
+   to plain decode's, soft-capped K4 of each mode > 0; GREW/SHRANK/CORRECT
+   on int8 through ``_g1``).  Part (a)'s logits include a verify step;
+   (d) and (f)'s float32 part run after (a), on its 4-layer model.
+   ``torch.cuda.memory_allocated`` is logged before each load.
 
 The line before last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.  ``--rehearse`` runs the control flow
@@ -381,9 +392,9 @@ def flex_softcap(torch, q4, qpos, kv_len, width, window, cap):
 
 def kernel_decode(torch, ops, F, case, dtype, window, timed, cap=None):
     """K1 (fused write + attend) and K1r (read-only) vs plain.  With ``cap``
-    (the soft-capped mode: K1 only, K1r refuses a cap) q is scaled so that
-    the scores reach several times the cap, and the row also holds the
-    uncapped plain output's distance from the capped one (the control)."""
+    (the soft-capped mode) q is scaled so that the scores reach several
+    times the cap, and each row also holds the uncapped plain output's
+    distance from the capped one (the control)."""
     S = case.S
     B, KH, QH, D, L = S["B"], S["KH"], S["QH"], S["D"], S["L"]
     kp, vp = case.pools(dtype)
@@ -401,16 +412,19 @@ def kernel_decode(torch, ops, F, case, dtype, window, timed, cap=None):
                                                    window=window, **kw)
     res = {"K1": dict(pools_bit_exact=_same_bytes(torch, kp, kp2) and _same_bytes(torch, vp, vp2),
                       max_abs_err=_err(torch, out_k, out_p))}
-    if cap is None:
-        ro_k = ops.paged_attention(q, kp, vp, *args, 2, window=window, **kw)
-        ro_p = ops.paged_attention_decode_plain(q, kp, vp, *args, 2, None, None, None, None,
-                                                window=window, write_kv=False, **kw)[0]
-        res["K1r"] = dict(max_abs_err=_err(torch, ro_k, ro_p))
-    else:
+    ro_k = ops.paged_attention(q, kp, vp, *args, 2, window=window, **kw)
+    ro_p = ops.paged_attention_decode_plain(q, kp, vp, *args, 2, None, None, None, None,
+                                            window=window, write_kv=False, **kw)[0]
+    res["K1r"] = dict(max_abs_err=_err(torch, ro_k, ro_p))
+    if cap is not None:
+        nocap = {k: v for k, v in kw.items() if k != "logit_softcap"}
         uncapped = ops.paged_attention_decode_plain(
-            q, kp2.clone(), vp2.clone(), *args, 1, kn, vn, *slots, window=window,
-            sm_scale=cap["sm_scale"], **case.scale_kw(dtype))[0]
+            q, kp2.clone(), vp2.clone(), *args, 1, kn, vn, *slots, window=window, **nocap)[0]
         res["K1"]["uncapped_err"] = _err(torch, uncapped, out_p)
+        uncapped = ops.paged_attention_decode_plain(
+            q, kp, vp, *args, 2, None, None, None, None, window=window, write_kv=False,
+            **nocap)[0]
+        res["K1r"]["uncapped_err"] = _err(torch, uncapped, ro_p)
     torch.cuda.synchronize()
     if not timed:
         return res
@@ -435,24 +449,31 @@ def kernel_decode(torch, ops, F, case, dtype, window, timed, cap=None):
     gathered = [(case.gather(kp, layer, case.page_tables, 0),
                  case.gather(vp, layer, case.page_tables, 1)) for layer in range(L)]
     q4 = q[:, :, None, :]
-    if cap is not None:
-        nocap = {k: v for k, v in kw.items() if k != "logit_softcap"}
-        res["K1"]["nocap_ms"] = time_ms(torch, lambda: ops.paged_attention_decode(
-            q, kp, vp, *args, lay(), kn, vn, *slots, window=window, **nocap), it)
-        # yardstick: flex_attention with the cap as its score_mod; layer 1
-        # holds the token written above
-        lens = case.seq_lens.long()
-        flex = flex_softcap(torch, q4, (lens - 1)[:, None], lens, Sx, window, cap)
-        res["K1"]["library_err"] = _err(torch, flex(*gathered[1])[:, :, 0], out_p)
-        res["K1"]["library_ms"] = time_ms(torch, lambda: flex(*gathered[lay()]), it)
-        return res
     k1r = lambda: ops.paged_attention(q, kp, vp, *args, lay(), window=window, **kw)  # noqa: E731
     res["K1r"].update(
         ms=time_ms(torch, k1r, it), host_ms=time_ms(torch, k1r, it, hold=False),
         plain_ms=time_ms(torch, lambda: ops.paged_attention_decode_plain(
             q, kp, vp, *args, lay(), None, None, None, None, window=window,
             write_kv=False, **kw), it))
-    res["K1r"]["bound_ms"], res["K1r"]["bound_by"] = bound(kv_bytes + io_bytes, flops)
+    res["K1r"]["bound_ms"], res["K1r"]["bound_by"] = bound(
+        kv_bytes + io_bytes, flops, QH * sum(eff) if cap is not None else 0)
+    if cap is not None:
+        res["K1"]["nocap_ms"] = time_ms(torch, lambda: ops.paged_attention_decode(
+            q, kp, vp, *args, lay(), kn, vn, *slots, window=window, **nocap), it)
+        res["K1r"]["nocap_ms"] = time_ms(torch, lambda: ops.paged_attention(
+            q, kp, vp, *args, lay(), window=window, **nocap), it)
+        # yardstick: flex_attention with the cap as its score_mod; layer 1
+        # holds the token written above, K1r read layer 2
+        lens = case.seq_lens.long()
+        flex = flex_softcap(torch, q4, (lens - 1)[:, None], lens, Sx, window, cap)
+        res["K1"]["library_err"] = _err(torch, flex(*gathered[1])[:, :, 0], out_p)
+        # the timed K1 calls wrote layer 2's slots since: K1r's plain output anew
+        ro_p = ops.paged_attention_decode_plain(q, kp, vp, *args, 2, None, None, None, None,
+                                                window=window, write_kv=False, **kw)[0]
+        res["K1r"]["library_err"] = _err(torch, flex(*gathered[2])[:, :, 0], ro_p)
+        res["K1"]["library_ms"] = res["K1r"]["library_ms"] = time_ms(
+            torch, lambda: flex(*gathered[lay()]), it)
+        return res
     # yardstick: one SDPA call on the gathered, contiguous (dequantized) K/V
     # of each layer
     pos = torch.arange(Sx, device=case.dev)[None]
@@ -601,11 +622,12 @@ def kernel_prefill(torch, ops, F, case, dtype, window, timed, cap=None):
     return res
 
 
-def kernel_verify(torch, ops, F, case, dtype, window, timed):
+def kernel_verify(torch, ops, F, case, dtype, window, timed, cap=None):
     """K4: T fed tokens per row at the case's contexts (seq_len includes
     them); the longest row overhangs its table by 2 < T tokens (those two
     slots discarded, as the engine routes them) and one row's writes are
-    all discarded.  Every query of this case lies inside its table."""
+    all discarded.  Every query of this case lies inside its table.
+    ``cap`` as in :func:`kernel_decode`."""
     S = case.S
     B, KH, QH, D, TP, L, T = S["B"], S["KH"], S["QH"], S["D"], S["TP"], S["L"], S["spec_T"]
     dev, width = case.dev, case.maxp * S["TP"]
@@ -620,8 +642,10 @@ def kernel_verify(torch, ops, F, case, dtype, window, timed):
     kp, vp = case.pools(dtype)
     io = case.io(dtype)
     q = case.randn((B, T, QH, D), io)
+    if cap is not None:
+        q = (q.float() * cap["q_scale"]).to(q.dtype)
     kn, vn = case.randn((B, T, KH, D), io), case.randn((B, T, KH, D), io)
-    kw = case.scale_kw(dtype)
+    kw = dict(case.scale_kw(dtype), **soft_cap_kw(cap))
     args = (case.page_tables, sl)
     slots = (slot_pages, slot_offsets)
     kp2, vp2 = kp.clone(), vp.clone()
@@ -632,6 +656,11 @@ def kernel_verify(torch, ops, F, case, dtype, window, timed):
     torch.cuda.synchronize()
     res = dict(pools_bit_exact=_same_bytes(torch, kp, kp2) and _same_bytes(torch, vp, vp2),
                max_abs_err=_err(torch, out_k[inside], out_p[inside]))
+    if cap is not None:
+        nocap = {k: v for k, v in kw.items() if k != "logit_softcap"}
+        uncapped = ops.paged_attention_verify_plain(q, kp2.clone(), vp2.clone(), *args, 1, kn,
+                                                    vn, *slots, window=window, **nocap)[0]
+        res["uncapped_err"] = _err(torch, uncapped[inside], out_p[inside])
     if not timed:
         return res
     it = S["iters"]
@@ -656,10 +685,20 @@ def kernel_verify(torch, ops, F, case, dtype, window, timed):
     res["bound_ms"], res["bound_by"] = bound(
         2 * keys * KH * D * isz + 2 * B * T * QH * D * qsz
         + 2 * (B * T * qsz + written * isz) * KH * D + B * case.maxp * 4 + 3 * B * T * 4,
-        4 * D * pairs)
+        4 * D * pairs, pairs if cap is not None else 0)
     gathered = [(case.gather(kp, layer, case.page_tables, 0),
                  case.gather(vp, layer, case.page_tables, 1)) for layer in range(L)]
     q4 = q.transpose(1, 2).contiguous()
+    if cap is not None:
+        res["nocap_ms"] = time_ms(torch, lambda: ops.paged_attention_verify(
+            q, kp, vp, *args, lay(), kn, vn, *slots, window=window, **nocap), it)
+        # yardstick: flex_attention with the cap as its score_mod; layer 1
+        # holds the tokens written above
+        flex = flex_softcap(torch, q4, pos, sl.long(), width, window, cap)
+        out_f = flex(*gathered[1]).transpose(1, 2)
+        res["library_err"] = _err(torch, out_f[inside], out_p[inside])
+        res["library_ms"] = time_ms(torch, lambda: flex(*gathered[lay()]), it)
+        return res
     mask = vis[:, None]
     res["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
         q4, *gathered[lay()], attn_mask=mask, enable_gqa=True), it)
@@ -932,13 +971,14 @@ def phase_kernels(torch, ops, S, dev):
             require(ok, f"{name} {tag} disagrees: {r}")
             if timed:
                 rows[key(name)] = dict(r, tolerance=tol_r)
-    # the soft-capped mode of K1 and K3 at the hybrid model's widths
-    # (Gemma-2-27B: KH 16, QH 32, sm_scale 1/12, cap 50); q scaled so that
-    # the scores reach several times the cap, or the random scores would
-    # stay far below it and a kernel that ignored the cap would pass: the
-    # uncapped plain output must lie far outside the tolerance (the
-    # control).  Windows: none, the model's sliding window (4096, past
-    # every context here) and one that cuts these contexts (phase 3's)
+    # the soft-capped mode of K1, K1r, K3 and K4 at the hybrid model's
+    # widths (Gemma-2-27B: KH 16, QH 32, sm_scale 1/12, cap 50), every pool
+    # type; q scaled so that the scores reach several times the cap, or the
+    # random scores would stay far below it and a kernel that ignored the
+    # cap would pass: the uncapped plain output must lie far outside the
+    # tolerance (the control).  Windows: none, the model's sliding window
+    # (4096, past every context here) and one that cuts these contexts
+    # (phase 3's).  Timed: the bf16 rows, and K4's byte modes
     hcfg = hybrid_config(S)
     require(hcfg.head_dim == S["D"], f"the hybrid model's head_dim {hcfg.head_dim} != {S['D']}")
     KH, QH = hcfg.num_kv_heads, hcfg.num_heads
@@ -946,14 +986,17 @@ def phase_kernels(torch, ops, S, dev):
     cap = dict(sm_scale=hcfg.query_scale ** -0.5, softcap=hcfg.attn_softcap,
                q_scale=S["G_QSCALE"])
     sliding = next(w for w in hcfg.group_windows if w)
-    for dtype, tol, timed in ((torch.bfloat16, BF16_TOL, True), (torch.float32, F32_TOL, False),
-                              (torch.int8, BF16_TOL, False)):
-        tag = {torch.bfloat16: "bf16", torch.float32: "f32", torch.int8: "int8"}[dtype]
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL),
+                       (torch.int8, BF16_TOL), (torch.float8_e4m3fn, BF16_TOL)):
+        tag = {torch.bfloat16: "bf16", torch.float32: "f32", torch.int8: "int8",
+               torch.float8_e4m3fn: "fp8"}[dtype]
         for window in (None, sliding, S["window"]):
-            t = timed and window is None
-            d = kernel_decode(torch, ops, F, gcase, dtype, window, t, cap=cap)["K1"]
+            t = dtype == torch.bfloat16 and window is None
+            d = kernel_decode(torch, ops, F, gcase, dtype, window, t, cap=cap)
             p = kernel_prefill(torch, ops, F, gcase, dtype, window, t, cap=cap)
-            for name, r in (("K1", d), ("K3", p)):
+            t4 = dtype != torch.float32 and window is None
+            v = kernel_verify(torch, ops, F, gcase, dtype, window, t4, cap=cap)
+            for name, r in (("K1", d["K1"]), ("K1r", d["K1r"]), ("K3", p), ("K4", v)):
                 ok = r["max_abs_err"] <= tol and r.get("pools_bit_exact", True) \
                     and r.get("kv_len0_row_zero", True)
                 control = r["uncapped_err"] > 10 * tol
@@ -964,8 +1007,9 @@ def phase_kernels(torch, ops, S, dev):
                     f"{10 * tol:.0e}) " + ("ok" if ok and control else "FAILED"))
                 require(ok, f"{name} softcap {tag} window={window} disagrees: {r}")
                 require(control, f"{name} softcap {tag}: the cap does not change the output")
-                if t:
-                    rows[f"{name} softcap"] = dict(r, tolerance=tol)
+                if t or (name == "K4" and t4):
+                    key = f"{name} softcap" + ("" if dtype == torch.bfloat16 else f" {tag}")
+                    rows[key] = dict(r, tolerance=tol)
     del gcase
     from kvcached_tpu_torch.ops.paged_attention import mla_wave_blocks
 
@@ -1019,21 +1063,17 @@ def last_logits(torch, cfg, params, S, dev, reference, kv_dtype=None, with_pools
     model's dtype or ``kv_dtype`` (one latent pool for the MLA family; an
     int8 pool with the engine's default scales).  ``with_pools``: returns
     (the logits, the pools after the steps, the values each layer of a pool
-    was written)."""
-    from kvcached_tpu_torch.device.pool import torch_dtype
-    from kvcached_tpu_torch.engine import EngineConfig
+    was written).  A hybrid model takes :func:`hybrid_logits`' path."""
+    from kvcached_tpu_torch.models.hybrid import HybridConfig
 
-    prefill_step, decode_step, verify_step = model_steps(cfg)
-    pdt = torch_dtype(kv_dtype or cfg.dtype)
-    kw = {}
-    if pdt == torch.int8:
-        sc = torch.full((cfg.num_layers, cfg.num_kv_heads), EngineConfig.kv_scale,
-                        dtype=torch.float32, device=dev)
-        kw = dict(quant_scales=(sc, sc))
     TP, T, Tv = S["TP"], max(S["buckets"]), S["spec_T"]
     tail = T // 4 + 9
     T2 = next(b for b in S["buckets"] if b >= tail)
     plen = T + tail
+    if isinstance(cfg, HybridConfig):
+        return hybrid_logits(torch, cfg, params, S, dev, reference, plen, kv_dtype, with_pools)
+    prefill_step, decode_step, verify_step = model_steps(cfg)
+    pdt, kw = _logits_pool(torch, cfg, dev, kv_dtype)
     n_pages = -(-(plen + 1 + Tv) // TP)
     shape = (cfg.num_layers, n_pages + 1, cfg.num_kv_heads, TP, cfg.head_dim)
     g = torch.Generator(device=dev).manual_seed(3)
@@ -1067,6 +1107,21 @@ def last_logits(torch, cfg, params, S, dev, reference, kv_dtype=None, with_pools
         written = (plen + 1 + Tv) * cfg.num_kv_heads * cfg.head_dim
         return logits, [p for p in (kp, vp) if p is not None], written
     return logits
+
+
+def _logits_pool(torch, cfg, dev, kv_dtype):
+    """(pool type, the steps' int8 scale keyword) of :func:`last_logits`:
+    an int8 pool takes the engine's default scales, one a model layer and
+    kv head."""
+    from kvcached_tpu_torch.device.pool import torch_dtype
+    from kvcached_tpu_torch.engine import EngineConfig
+
+    pdt = torch_dtype(kv_dtype or cfg.dtype)
+    if pdt != torch.int8:
+        return pdt, {}
+    sc = torch.full((cfg.num_layers, cfg.num_kv_heads), EngineConfig.kv_scale,
+                    dtype=torch.float32, device=dev)
+    return pdt, dict(quant_scales=(sc, sc))
 
 
 def float32_copy(cfg, params):
@@ -1474,18 +1529,55 @@ def byte_code_diffs(torch, a, b, mode, written):
     return share, (place(a) - place(b)).abs().flatten(1).amax(1).tolist()
 
 
+def near_ties(torch, cfg, params, S, dev, kv_dtype, prompts, outs, logits_tol):
+    """Where spec decode's greedy tokens (``outs[True]``) part from plain
+    decode's (``outs[False]``) on a byte pool: each request's first
+    differing token, checked against a third path, the prefill of the
+    request's common prefix through the kernels on a fresh pool of
+    ``kv_dtype``.  A near-tie passes: the two tokens are that path's top
+    two logits, within ``logits_tol`` of the top logit's magnitude (the
+    byte pool's bf16 operands and the verify and decode forwards' GEMM
+    shapes can turn such a tie either way).  Returns [(request, token
+    index, top two logits, their ids, gap)]; raises on any other split.
+    A hybrid model only (:func:`hybrid_logits`)."""
+    ties = []
+    for r, (a, b) in enumerate(zip(outs[False], outs[True])):
+        if a == b:
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        prefix = prompts[r] + a[:j]
+        lg = hybrid_logits(torch, cfg, params, S, dev, False, len(prefix), kv_dtype,
+                           prompt=prefix)[0]
+        top = torch.topk(lg.float(), 2)
+        vals, ids = [round(v, 6) for v in top.values.tolist()], top.indices.tolist()
+        gap = vals[0] - vals[1]
+        require(sorted(ids) == sorted((a[j], b[j])) and gap <= logits_tol * abs(vals[0]),
+                f"request {r}: spec token {b[j]} and plain token {a[j]} at {j} are not the "
+                f"prefill path's near-tied top two (top two {vals}, ids {ids})")
+        ties.append((r, j, vals, ids, gap))
+    return ties
+
+
 def phase_byte_pools(torch, ops, cfg, params, S, dev, rehearse, *, tag, mix_kernels,
-                     spec_kernel, logits_tol):
+                     spec_kernel, logits_tol, bf16_pages=None, f32_model=None,
+                     elastic_group=0, parts="1234", spec_ties=False):
     """One model family over int8 and e4m3 pools: Llama-3-8B in phase 9,
-    the MLA family's latent pool in phase 8 (c); ``tag`` prefixes the log
-    lines of parts 1-4.  (1) the pages one HBM budget holds per pool type;
-    (2) phase 4's request mix on each byte pool (bf16 model), launch
-    counters zeroed just before and read just after (``mix_kernels`` of
-    each pool type > 0), tok/s and one decode dispatch's device busy share;
-    (3) at float32 on each byte pool, the logits gate below, and spec
-    decode's greedy tokens identical to plain decode's (``spec_kernel`` of
-    each pool type > 0, counted over the spec run); (4) GREW/SHRANK/CORRECT
-    on an int8 pool.  Returns (launches by kernel and mode, tok/s by mode).
+    the MLA family's latent pool in phase 8 (c), Gemma-2-27B's arena in
+    phase 10 (f); ``tag`` prefixes the log lines of parts 1-4.  (1) the
+    pages one HBM budget (``bf16_pages`` bf16 pages, phase 4's 320 by
+    default) holds per pool type; (2) phase 4's request mix on each byte
+    pool (bf16 model), launch counters zeroed just before and read just
+    after (``mix_kernels`` of each pool type > 0; a name ``"K1+softcap"``
+    counts the soft-capped mode), tok/s and one decode dispatch's device
+    busy share; (3) on each byte pool, at float32 (``f32_model()``: the
+    model and parameters, by default the same weights widened), the logits
+    gate below, and spec decode's greedy tokens identical to plain decode's
+    (``spec_kernel`` of each pool type > 0, counted over the spec run); (4)
+    GREW/SHRANK/CORRECT on an int8 pool through layer group
+    ``elastic_group``'s segment.  ``parts`` names the parts to run (1 and
+    2 go together).  ``spec_ties``: in (3), spec tokens may part from plain
+    decode's at a near-tie (:func:`near_ties`).  Returns (launches by
+    kernel and mode, tok/s by mode).
 
     The logits gate: the kernel path's last-position logits within
     ``logits_tol`` (norm-relative) of the plain path's, and the byte pool's
@@ -1500,7 +1592,8 @@ def phase_byte_pools(torch, ops, cfg, params, S, dev, rehearse, *, tag, mix_kern
     step and a differing int8 code must be a neighbour.  e4m3's values
     crowd towards zero (2^-9 apart below 2^-6), where the same movement
     crosses several codes.  The deeper layers compound; the shares of
-    differing codes and their distances are printed for every layer."""
+    differing codes and their distances are printed for every layer (model
+    layers: a hybrid arena's layer holds one model layer of each group)."""
     from kvcached_tpu_torch.config import KVConfig
     from kvcached_tpu_torch.device.pool import PoolSpec
     from kvcached_tpu_torch.engine import EngineConfig, LLMEngine, SamplingParams
@@ -1509,119 +1602,136 @@ def phase_byte_pools(torch, ops, cfg, params, S, dev, rehearse, *, tag, mix_kern
     modes = {"int8": "int8", "float8_e4m3fn": "fp8"}
     part = lambda n: f"[{tag}{n}]"  # noqa: E731
     buffers = getattr(cfg, "num_kv_buffers", 2)
+    groups = len(getattr(cfg, "group_windows", (None,)))
+    arena_layers = cfg.layers_per_group if groups > 1 else cfg.num_layers
     kv = lambda dt: KVConfig(  # noqa: E731
-        num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+        num_layers=arena_layers, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
         block_tokens=TP, page_tokens=TP, kv_dtype=dt, num_kv_buffers=buffers)
-    bf16_pages = 320 if not rehearse else 96  # phase 4's and phase 8's pools
+    if bf16_pages is None:
+        bf16_pages = 320 if not rehearse else 96  # phase 4's and phase 8's pools
     budget = bf16_pages * kv("bfloat16").page_bytes
     pages = {dt: PoolSpec.from_config(kv(dt), hbm_budget_bytes=budget).num_pages
              for dt in ("bfloat16", *modes)}
-    log(f"{part(1)} one HBM budget of {budget / 2**30:.3f} GiB holds "
-        + ", ".join(f"{dt} {n} pages ({n * TP} tokens)" for dt, n in pages.items()))
-    require(all(pages[dt] == 2 * pages["bfloat16"] for dt in modes),
-            "a byte pool holds twice bf16's pages")
     counts, tok_s = {}, {}
-    for mode, mt in modes.items():
-        eng = LLMEngine(cfg, EngineConfig(
-            max_batch=8, max_model_len=2048 if not rehearse else 256, page_tokens=TP,
-            decode_horizon=8, prefill_buckets=S["buckets"], num_pages=pages[mode],
-            kv_dtype=mode, prefill_batch=4), params=params, device=dev)
-        require(eng.k_pools.element_size() == 1 and (eng.v_pools is None) == (buffers == 1),
-                "a byte pool holds one byte a value, in the family's buffers")
-        rand, greedy, wave1, wave2 = request_mix(S, V, new)
-        _, out1, out2, wall = serve_mix(ops, eng, wave1, wave2)
-        by_dtype = ops.launch_counts_by_dtype()  # the main path's, by pool type
-        m = eng.kv_metrics()
-        prof = None if rehearse else profile_decode(torch, eng, rand, greedy)
-        eng.shutdown()
-        del eng
-        th = m["throughput"]
-        tok_s[f"{mt} prefill"] = th["prefill_tokens"] / max(th["prefill_seconds"], 1e-9)
-        tok_s[f"{mt} decode"] = th["decode_tokens"] / max(th["decode_seconds"], 1e-9)
-        for k in mix_kernels:
-            counts[f"{k} {mt}"] = by_dtype[k].get(mode, 0)
-        outs = out1 + out2
-        log(f"{part(2)} {mode} pool, {pages[mode]} pages: {len(outs)} requests; wave 2 in "
-            f"{wall:.2f} s: prefill {tok_s[mt + ' prefill']:.1f} tok/s, decode "
-            f"{tok_s[mt + ' decode']:.1f} tok/s; prefix cache {m['prefix_cache']}; "
-            f"launches by pool type {json.dumps(by_dtype)}")
-        if prof:
-            log(f"{part(2)} {mode}: one decode dispatch ({prof['rows']} rows x "
-                f"{prof['steps']} steps) under torch.profiler: wall {prof['wall_ms']:.2f} "
-                f"ms, device busy {prof['device_ms']:.2f} ms "
-                f"({100 * prof['device_ms'] / prof['wall_ms']:.1f}%), top kernels "
-                f"{json.dumps(prof['top'])}")
-        require(all(len(o) == new for o in outs), "every request yields max_new tokens")
-        require(all(0 <= t < V for o in outs for t in o), "tokens inside the vocabulary")
-        require(m["prefix_cache"]["hits"] > 0 and m["prefill_batch"]["dispatches"] > 0,
-                "the prefix hit and batched prefill ran")
-        for k in mix_kernels:
-            if not rehearse:
-                require(counts[f"{k} {mt}"] > 0, f"{k} {mt} was never launched")
-    # (3) at float32: the same weights widened
-    c32, p32 = float32_copy(cfg, params)
-    rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
-    rand = request_mix(S, V, new)[0]
-    B0 = max(S["buckets"])
-    prompts = [(rand(12) * B0)[:B0 // 4], rand(B0 // 3), (rand(7) * B0)[:B0 // 8], rand(B0 // 5)]
-    sp = SamplingParams(max_new_tokens=S["spec_new_exact"])
-    where = ("prefill", "decode", "verify")
-    ref32 = last_logits(torch, c32, p32, S, dev, True)  # plain path, float32 pool
-    for mode, mt in modes.items():
-        kern, kpools, written = last_logits(torch, c32, p32, S, dev, False, kv_dtype=mode,
-                                            with_pools=True)
-        plain, ppools, _ = last_logits(torch, c32, p32, S, dev, True, kv_dtype=mode,
-                                       with_pools=True)
-        rels = {w: rel(a, b) for w, a, b in zip(where, kern, plain)}
-        quant = {w: rel(b, r) for w, b, r in zip(where, plain, ref32)}
-        codes = {name: byte_code_diffs(torch, a, b, mode, written)
-                 for name, a, b in zip("KV", kpools, ppools)}
-        del kpools, ppools
-        log(f"{part(3)} {mode} pool, float32 model: last-position logits kernel path vs "
-            f"plain path, norm-relative {json.dumps(rels)} (tol {logits_tol}); the byte "
-            f"pool's own effect (plain path, {mode} pool vs float32 pool) "
-            f"{json.dumps(quant)} (must exceed the tol); share of written codes that "
-            f"differ between the paths' pools, by layer "
-            + json.dumps({n: [float(f"{s:.3e}") for s in sh] for n, (sh, _) in codes.items()})
-            + "; the most values between two codes, by layer "
-            + json.dumps({n: dist for n, (_, dist) in codes.items()}))
-        require(max(rels.values()) <= logits_tol, f"{mode} logits disagree: {rels}")
-        if not rehearse:  # the toy models of a rehearsal move less
-            require(min(quant.values()) > logits_tol,
-                    f"the logits gate cannot tell a {mode} pool from a float32 pool: {quant}")
-        require(all(sh[0] == 0 for sh, _ in codes.values()),
-                f"{mode} layer 0 codes differ, written from identical inputs")
-        require(mode != "int8" or all(dist[1] <= 1 for _, dist in codes.values()),
-                f"{mode} layer 1 codes differ by more than one step")
-        outs, ms = {}, None
-        for spec in (False, True):
-            eng = LLMEngine(c32, EngineConfig(
+    if "2" in parts:
+        log(f"{part(1)} one HBM budget of {budget / 2**30:.3f} GiB holds "
+            + ", ".join(f"{dt} {n} pages ({n * TP} tokens)" for dt, n in pages.items()))
+        require(all(pages[dt] == 2 * pages["bfloat16"] for dt in modes),
+                "a byte pool holds twice bf16's pages")
+        for mode, mt in modes.items():
+            eng = LLMEngine(cfg, EngineConfig(
                 max_batch=8, max_model_len=2048 if not rehearse else 256, page_tokens=TP,
-                decode_horizon=8, prefill_buckets=S["buckets"], num_pages=128,
-                kv_dtype=mode, prefill_batch=4, spec_decode=spec), params=p32, device=dev)
-            if spec:
-                ops.reset_launch_counts()  # --- the byte pool's spec path starts here
-            outs[spec] = serve(eng, [(p, sp) for p in prompts])
-            if spec:
-                counts[f"{spec_kernel} {mt}"] = \
-                    ops.launch_counts_by_dtype()[spec_kernel].get(mode, 0)
-                ms = eng.kv_metrics()["spec"]  # --- and ends here
+                decode_horizon=8, prefill_buckets=S["buckets"], num_pages=pages[mode],
+                kv_dtype=mode, prefill_batch=4), params=params, device=dev)
+            require(eng.k_pools.element_size() == 1 and (eng.v_pools is None) == (buffers == 1),
+                    "a byte pool holds one byte a value, in the family's buffers")
+            rand, greedy, wave1, wave2 = request_mix(S, V, new)
+            _, out1, out2, wall = serve_mix(ops, eng, wave1, wave2)
+            by_dtype = ops.launch_counts_by_dtype()  # the main path's, by pool type
+            m = eng.kv_metrics()
+            prof = None if rehearse else profile_decode(torch, eng, rand, greedy)
             eng.shutdown()
             del eng
-        same = outs[True] == outs[False]
-        log(f"{part(3)} {mode} pool, float32 model, {len(prompts)} requests x "
-            f"{S['spec_new_exact']} tokens: spec decode vs plain decode greedy tokens "
-            f"identical: {same}; spec {json.dumps(ms)}; {spec_kernel} {mt} launches "
-            f"{counts[f'{spec_kernel} {mt}']}")
-        require(same, f"float32 spec decode on the {mode} pool changed greedy tokens")
-        require(ms["dispatches"] > 0, "the spec run dispatched no verify")
-        if not rehearse:
-            require(counts[f"{spec_kernel} {mt}"] > 0, f"{spec_kernel} {mt} was never launched")
-    del p32
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    # (4) the elastic gate on an int8 pool (bf16 model)
-    phase_elastic(torch, cfg, params, S, dev, rehearse, tag=f"{tag}4 int8", kv_dtype="int8")
+            th = m["throughput"]
+            tok_s[f"{mt} prefill"] = th["prefill_tokens"] / max(th["prefill_seconds"], 1e-9)
+            tok_s[f"{mt} decode"] = th["decode_tokens"] / max(th["decode_seconds"], 1e-9)
+            for k in mix_kernels:
+                name, _, mod = k.partition("+")
+                counts[f"{k} {mt}"] = by_dtype[name].get(mode + (f"+{mod}" if mod else ""), 0)
+            outs = out1 + out2
+            log(f"{part(2)} {mode} pool, {pages[mode]} pages: {len(outs)} requests; wave 2 in "
+                f"{wall:.2f} s: prefill {tok_s[mt + ' prefill']:.1f} tok/s, decode "
+                f"{tok_s[mt + ' decode']:.1f} tok/s; prefix cache {m['prefix_cache']}; "
+                f"launches by pool type {json.dumps(by_dtype)}")
+            if prof:
+                log(f"{part(2)} {mode}: one decode dispatch ({prof['rows']} rows x "
+                    f"{prof['steps']} steps) under torch.profiler: wall {prof['wall_ms']:.2f} "
+                    f"ms, device busy {prof['device_ms']:.2f} ms "
+                    f"({100 * prof['device_ms'] / prof['wall_ms']:.1f}%), top kernels "
+                    f"{json.dumps(prof['top'])}")
+            require(all(len(o) == new for o in outs), "every request yields max_new tokens")
+            require(all(0 <= t < V for o in outs for t in o), "tokens inside the vocabulary")
+            require((m["prefix_cache"]["hits"] > 0) == (groups == 1)
+                    and m["prefill_batch"]["dispatches"] > 0,
+                    "the prefix hit (no cache for layer groups) and batched prefill ran")
+            for k in mix_kernels:
+                if not rehearse:
+                    require(counts[f"{k} {mt}"] > 0, f"{k} {mt} was never launched")
+    if "3" in parts:
+        # (3) at float32: the same weights widened, or the caller's model
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()  # the byte engines' arenas, before the float32 weights
+        c32, p32 = f32_model() if f32_model else float32_copy(cfg, params)
+        rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+        rand = request_mix(S, V, new)[0]
+        B0 = max(S["buckets"])
+        prompts = [(rand(12) * B0)[:B0 // 4], rand(B0 // 3), (rand(7) * B0)[:B0 // 8], rand(B0 // 5)]
+        sp = SamplingParams(max_new_tokens=S["spec_new_exact"])
+        where = ("prefill", "decode", "verify")
+        ref32 = last_logits(torch, c32, p32, S, dev, True)  # plain path, float32 pool
+        for mode, mt in modes.items():
+            kern, kpools, written = last_logits(torch, c32, p32, S, dev, False, kv_dtype=mode,
+                                                with_pools=True)
+            plain, ppools, _ = last_logits(torch, c32, p32, S, dev, True, kv_dtype=mode,
+                                           with_pools=True)
+            rels = {w: rel(a, b) for w, a, b in zip(where, kern, plain)}
+            quant = {w: rel(b, r) for w, b, r in zip(where, plain, ref32)}
+            codes = {name: byte_code_diffs(torch, a, b, mode, written)
+                     for name, a, b in zip("KV", kpools, ppools)}
+            del kpools, ppools
+            log(f"{part(3)} {mode} pool, float32 model: last-position logits kernel path vs "
+                f"plain path, norm-relative {json.dumps(rels)} (tol {logits_tol}); the byte "
+                f"pool's own effect (plain path, {mode} pool vs float32 pool) "
+                f"{json.dumps(quant)} (must exceed the tol); share of written codes that "
+                f"differ between the paths' pools, by layer "
+                + json.dumps({n: [float(f"{s:.3e}") for s in sh] for n, (sh, _) in codes.items()})
+                + "; the most values between two codes, by layer "
+                + json.dumps({n: dist for n, (_, dist) in codes.items()}))
+            require(max(rels.values()) <= logits_tol, f"{mode} logits disagree: {rels}")
+            if not rehearse:  # the toy models of a rehearsal move less
+                require(min(quant.values()) > logits_tol,
+                        f"the logits gate cannot tell a {mode} pool from a float32 pool: {quant}")
+            require(all(sh[0] == 0 for sh, _ in codes.values()),
+                    f"{mode} layer 0 codes differ, written from identical inputs")
+            require(mode != "int8" or all(dist[1] <= 1 for _, dist in codes.values()),
+                    f"{mode} layer 1 codes differ by more than one step")
+            outs, ms = {}, None
+            for spec in (False, True):
+                eng = LLMEngine(c32, EngineConfig(
+                    max_batch=8, max_model_len=2048 if not rehearse else 256, page_tokens=TP,
+                    decode_horizon=8, prefill_buckets=S["buckets"], num_pages=128,
+                    kv_dtype=mode, prefill_batch=4, spec_decode=spec), params=p32, device=dev)
+                if spec:
+                    ops.reset_launch_counts()  # --- the byte pool's spec path starts here
+                outs[spec] = serve(eng, [(p, sp) for p in prompts])
+                if spec:
+                    name, _, mod = spec_kernel.partition("+")
+                    counts[f"{spec_kernel} {mt}"] = ops.launch_counts_by_dtype()[name].get(
+                        mode + (f"+{mod}" if mod else ""), 0)
+                    ms = eng.kv_metrics()["spec"]  # --- and ends here
+                eng.shutdown()
+                del eng
+            same = outs[True] == outs[False]
+            ties = near_ties(torch, c32, p32, S, dev, mode, prompts, outs, logits_tol) \
+                if spec_ties and not same else []
+            log(f"{part(3)} {mode} pool, float32 model, {len(prompts)} requests x "
+                f"{S['spec_new_exact']} tokens: spec decode vs plain decode greedy tokens "
+                f"identical: {same}; spec {json.dumps(ms)}; {spec_kernel} {mt} launches "
+                f"{counts[f'{spec_kernel} {mt}']}"
+                + "".join(f"; request {r} parts at token {j}, where the prefill path's top two "
+                          f"logits {top} are {gap:.3e} apart (ids {ids}): a near-tie"
+                          for r, j, top, ids, gap in ties))
+            require(same or ties, f"float32 spec decode on the {mode} pool changed greedy tokens")
+            require(ms["dispatches"] > 0, "the spec run dispatched no verify")
+            if not rehearse:
+                require(counts[f"{spec_kernel} {mt}"] > 0, f"{spec_kernel} {mt} was never launched")
+        del p32
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    if "4" in parts:
+        # (4) the elastic gate on an int8 pool (bf16 model)
+        phase_elastic(torch, cfg, params, S, dev, rehearse, tag=f"{tag}4 int8", kv_dtype="int8",
+                      group=elastic_group)
     return counts, tok_s
 
 
@@ -1640,7 +1750,7 @@ def phase_mla(torch, ops, S, dev, rehearse):
     plain path at float32; (e) float32 spec tokens (spec_exact) identical
     to plain decode's; (f) GREW/SHRANK/CORRECT under a live limit.  Returns
     the launch counts and the tok/s."""
-    from kvcached_tpu_torch.engine import EngineConfig, LLMEngine, SamplingParams
+    from kvcached_tpu_torch.engine import EngineConfig, LLMEngine
     from kvcached_tpu_torch.models import mla
 
     t_phase = time.perf_counter()
@@ -1715,24 +1825,8 @@ def phase_mla(torch, ops, S, dev, rehearse):
             <= LOGITS_REL_TOL, f"MLA logits disagree: {rels}")
 
     c32, p32 = float32_copy(cfg, params)
-    rand = request_mix(S, V, new)[0]
-    B0 = max(S["buckets"])
-    prompts = [(rand(12) * B0)[:B0 // 4], rand(B0 // 3), (rand(7) * B0)[:B0 // 8], rand(B0 // 5)]
-    sp = SamplingParams(max_new_tokens=S["spec_new_exact"])
-    outs, ms = {}, None
-    for spec in (False, True):
-        eng = make(c32, p32, spec, 64)
-        outs[spec] = serve(eng, [(p, sp) for p in prompts])
-        ms = eng.kv_metrics().get("spec")
-        eng.shutdown()
-        del eng
+    spec_exact(torch, c32, p32, S, dev, rehearse, tag="[mla] (e)", num_pages=64)
     del p32
-    same = outs[True] == outs[False]
-    log(f"[mla] (e) float32, {len(prompts)} requests x {S['spec_new_exact']} tokens: spec "
-        f"decode (spec_exact) vs plain decode greedy tokens identical: {same}; spec "
-        f"{json.dumps(ms)}")
-    require(same, "float32 MLA spec decode changed greedy tokens")
-    require(ms["dispatches"] > 0, "the float32 MLA spec run dispatched no verify")
     phase_elastic(torch, cfg, params, S, dev, rehearse, tag="mla (f) elastic")
     log(f"[mla] phase 8 in {time.perf_counter() - t_phase:.1f} s")
     return counts, tok_s
@@ -1758,23 +1852,33 @@ def hybrid_config(S, **kw):
         attn_softcap=50.0, final_softcap=30.0, query_scale=144.0, **kw)
 
 
-def hybrid_logits(torch, cfg, params, S, dev, reference, plen):
+def hybrid_logits(torch, cfg, params, S, dev, reference, plen, kv_dtype=None,
+                  with_pools=False, prompt=None):
     """Last-position logits of a ``plen``-token prompt prefilled in chunks
-    of the largest bucket, and of one decode step after it, through the
-    kernels or (``reference``) through their plain versions, on fresh pools
-    of the model's dtype: one arena of ``layers_per_group`` layers whose
-    pages each group takes from its own row of the table."""
+    of the largest bucket, of one decode step after it and of one verify
+    step of spec_T fed tokens after that, through the kernels or
+    (``reference``) through their plain versions, on fresh pools of the
+    model's dtype or ``kv_dtype`` (an int8 pool with the engine's default
+    scales): one arena of ``layers_per_group`` layers whose pages each
+    group takes from its own row of the table.  ``with_pools`` as in
+    :func:`last_logits`, each model layer's pages gathered from its arena
+    layer; ``prompt``: the prompt's tokens (default: ``plen`` drawn from
+    seed 3)."""
     from kvcached_tpu_torch.models import hybrid as th
 
-    TP, B0 = S["TP"], max(S["buckets"])
+    TP, B0, Tv = S["TP"], max(S["buckets"]), S["spec_T"]
     G = len(cfg.group_windows)
-    n_pages = -(-(plen + 1) // TP)
+    pdt, kw = _logits_pool(torch, cfg, dev, kv_dtype)
+    n_pages = -(-(plen + 1 + Tv) // TP)
     shape = (cfg.layers_per_group, G * n_pages + 1, cfg.num_kv_heads, TP, cfg.head_dim)
-    g = torch.Generator(device=dev).manual_seed(3)
-    prompt = torch.randint(0, cfg.vocab_size, (plen,), generator=g, device=dev,
-                           dtype=torch.int32)
+    if prompt is None:
+        g = torch.Generator(device=dev).manual_seed(3)
+        prompt = torch.randint(0, cfg.vocab_size, (plen,), generator=g, device=dev,
+                               dtype=torch.int32)
+    else:
+        prompt = torch.tensor(prompt, dtype=torch.int32, device=dev)
     table = torch.arange(1, G * n_pages + 1, dtype=torch.int32, device=dev).reshape(G, n_pages)
-    kp = torch.zeros(shape, dtype=cfg.tdtype, device=dev)
+    kp = torch.zeros(shape, dtype=pdt, device=dev)
     vp = torch.zeros_like(kp)
     for q0 in range(0, plen, B0):
         n = min(B0, plen - q0)
@@ -1786,29 +1890,80 @@ def hybrid_logits(torch, cfg, params, S, dev, reference, plen):
         nreal = -(-n // TP)
         chunk[:, :nreal] = table[:, q0 // TP: q0 // TP + nreal]
         lg_prefill, _, _ = th.hybrid_prefill_step(params, cfg, toks, pos, kp, vp, chunk, table,
-                                                  q0, n, reference_attention=reference)
+                                                  q0, n, reference_attention=reference, **kw)
     one = lambda x: torch.tensor([x], dtype=torch.int32, device=dev)  # noqa: E731
     lg_decode, _, _ = th.hybrid_decode_step(
         params, cfg, prompt[:1], one(plen), kp, vp, table[:, None],
         table[:, plen // TP: plen // TP + 1].contiguous(), one(plen % TP), one(plen + 1),
-        reference_attention=reference)
-    return lg_prefill, lg_decode[0]
+        reference_attention=reference, **kw)
+    vpos = plen + 1 + torch.arange(Tv, dtype=torch.int32, device=dev)
+    lg_verify, _, _ = th.hybrid_verify_step(
+        params, cfg, prompt[None, 1:Tv + 1], vpos[None], kp, vp, table[:, None],
+        table[:, vpos // TP][:, None].contiguous(), (vpos % TP)[None], one(plen + 1 + Tv),
+        reference_attention=reference, **kw)
+    logits = lg_prefill, lg_decode[0], lg_verify[0, -1]
+    if not with_pools:
+        return logits
+    layers = [pool[lg][table[g].long()] for pool in (kp, vp)
+              for g, lg in zip(cfg.group_index, cfg.layer_in_group)]
+    L = cfg.num_layers
+    return logits, [torch.stack(layers[:L]), torch.stack(layers[L:])], \
+        (plen + 1 + Tv) * cfg.num_kv_heads * cfg.head_dim
+
+
+def spec_exact(torch, cfg, params, S, dev, rehearse, *, tag, num_pages=128):
+    """A float32 model's greedy tokens with spec decode (spec_exact)
+    identical to plain decode's, on prompts half of which repeat (phase 8
+    (e), phase 10 (d))."""
+    from kvcached_tpu_torch.engine import EngineConfig, LLMEngine, SamplingParams
+
+    rand = request_mix(S, cfg.vocab_size, S["max_new"])[0]
+    B0 = max(S["buckets"])
+    prompts = [(rand(12) * B0)[:B0 // 4], rand(B0 // 3), (rand(7) * B0)[:B0 // 8], rand(B0 // 5)]
+    sp = SamplingParams(max_new_tokens=S["spec_new_exact"])
+    outs, ms = {}, None
+    for spec in (False, True):
+        eng = LLMEngine(cfg, EngineConfig(
+            max_batch=8, max_model_len=2048 if not rehearse else 256, page_tokens=S["TP"],
+            decode_horizon=8, prefill_buckets=S["buckets"], num_pages=num_pages,
+            kv_dtype="float32", prefill_batch=4, spec_decode=spec, spec_exact=spec),
+            params=params, device=dev)
+        outs[spec] = serve(eng, [(p, sp) for p in prompts])
+        ms = eng.kv_metrics().get("spec")
+        eng.shutdown()
+        del eng
+    same = outs[True] == outs[False]
+    log(f"{tag} float32, {cfg.num_layers} layers, {len(prompts)} requests x "
+        f"{S['spec_new_exact']} tokens: spec decode (spec_exact) vs plain decode greedy tokens "
+        f"identical: {same}; spec {json.dumps(ms)}")
+    require(same, f"{tag} float32 spec decode changed greedy tokens")
+    require(ms["dispatches"] > 0, f"{tag} the float32 spec run dispatched no verify")
 
 
 def phase_hybrid(torch, ops, S, dev, rehearse):
     """The hybrid family (two layer groups, sliding and full, on one shared
     arena) at Gemma-2-27B's widths, after every earlier model is freed:
     (a) a 4-layer float32 model of the same widths, last-position logits of
-    a prompt longer than the 4096-token window (prefill and one decode
-    step) through the kernels against the plain path, norm-relative, with
-    the final soft-cap on; (b) the bf16 model at all 46 layers, weights
+    a prompt longer than the 4096-token window (prefill, one decode step and
+    one verify step) through the kernels against the plain path,
+    norm-relative, with the final soft-cap on; (b) the bf16 model at all 46 layers, weights
     drawn on the card from seed 0, serving phase 4's request mix plus a
     prompt longer than the window, with the launch counters zeroed just
     before and read just after (soft-capped K1 and K3, and K2, > 0), the
     sliding group freeing pages of that request while the full group keeps
     all of its own, both groups' pages from one arena, tok/s and one decode
     dispatch under torch.profiler; (c) GREW/SHRANK/CORRECT through a limit
-    on the full group's segment (``_g1``).  Returns (launches, tok/s)."""
+    on the full group's segment (``_g1``); (d) the 4-layer float32 model's
+    greedy tokens with spec decode (spec_exact) identical to plain decode's;
+    (e) the bf16 model serving phase 4's request mix without and with spec
+    decode, the launch counters zeroed just before and read just after the
+    spec run (soft-capped K4 > 0), tok/s, tokens per verify iteration and
+    one spec dispatch under torch.profiler; (f) int8 and e4m3 arenas
+    (:func:`phase_byte_pools`: pages per budget, phase 4's mix, the 4-layer
+    float32 logits gate and spec tokens, the elastic gate on int8 through
+    ``_g1``).  (d) and (f)'s float32 part run right after (a), on its
+    model: beside the 46-layer bf16 model its 17 GiB would not fit.
+    Returns (launches, tok/s)."""
     import math
 
     from kvcached_tpu_torch.engine import EngineConfig, LLMEngine
@@ -1824,11 +1979,8 @@ def phase_hybrid(torch, ops, S, dev, rehearse):
     plen = S["hyb_long"]
     kern = hybrid_logits(torch, c32, p32, S, dev, False, plen)
     plain = hybrid_logits(torch, c32, p32, S, dev, True, plen)
-    del p32
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
     rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
-    rels = {w: rel(a, b) for w, a, b in zip(("prefill", "decode"), kern, plain)}
+    rels = {w: rel(a, b) for w, a, b in zip(("prefill", "decode", "verify"), kern, plain)}
     c = c32.final_softcap
     raw = [c * torch.atanh((x / c).double()) for x in plain]  # the logits before the cap
     moved = [float(((r - x.double()).abs() > 1e-3).double().mean()) for r, x in zip(raw, plain)]
@@ -1836,10 +1988,21 @@ def phase_hybrid(torch, ops, S, dev, rehearse):
         f"{plen}-token prompt (window {c32.group_windows}): last-position logits, kernel path "
         f"vs plain path on {dev}, norm-relative {json.dumps(rels)} (tol {LOGITS_REL_TOL}); "
         f"final soft-cap {c}: share of logits it moved by more than 1e-3: prefill "
-        f"{moved[0]:.3e} decode {moved[1]:.3e}, largest logit before the cap "
+        f"{moved[0]:.3e} decode {moved[1]:.3e} verify {moved[2]:.3e}, largest logit before the cap "
         f"{max(float(r.abs().max()) for r in raw):.3f}")
     require(c is not None and c32.attn_softcap is not None, "the soft-caps are on")
     require(max(rels.values()) <= LOGITS_REL_TOL, f"hybrid logits disagree: {rels}")
+    # (d) and (f)'s float32 part run here, on the 4-layer model: beside the
+    # 46-layer bf16 model (53 GiB) its 17 GiB would not fit
+    TP, V, new = S["TP"], c32.vocab_size, S["max_new"]
+    spec_exact(torch, c32, p32, S, dev, rehearse, tag="[hybrid] (d)")
+    byte_counts, tok_s = phase_byte_pools(
+        torch, ops, c32, p32, S, dev, rehearse, tag="hybrid f",
+        mix_kernels=("K1+softcap", "K2", "K3+softcap"), spec_kernel="K4+softcap",
+        logits_tol=LOGITS_REL_TOL, f32_model=lambda: (c32, p32), parts="3", spec_ties=True)
+    del p32
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
     # (b) the bf16 model at full depth
     cfg = hybrid_config(S)
@@ -1855,7 +2018,6 @@ def phase_hybrid(torch, ops, S, dev, rehearse):
         f"softcaps {cfg.attn_softcap}/{cfg.final_softcap}, {cfg.dtype}: "
         f"{n_params / 1e9:.2f} B params drawn on {dev} in {time.perf_counter() - t0:.1f} s; "
         f"{mem()}")
-    TP, V, new = S["TP"], cfg.vocab_size, S["max_new"]
     eng = LLMEngine(cfg, EngineConfig(
         max_batch=8, max_model_len=S["hyb_max_len"], page_tokens=TP, decode_horizon=8,
         prefill_buckets=S["buckets"], num_pages=S["hyb_pages"], kv_dtype=cfg.dtype,
@@ -1898,7 +2060,7 @@ def phase_hybrid(torch, ops, S, dev, rehearse):
     eng.shutdown()
     del eng
     th = m["throughput"]
-    tok_s = dict(prefill=th["prefill_tokens"] / max(th["prefill_seconds"], 1e-9),
+    tok_s.update(prefill=th["prefill_tokens"] / max(th["prefill_seconds"], 1e-9),
                  decode=th["decode_tokens"] / max(th["decode_seconds"], 1e-9))
     log(f"[hybrid] (b) {len(outs)} requests ({len(wave2)} of wave 2 plus a {plen}-token "
         f"prompt), {sum(map(len, outs))} tokens; wave 2 in {wall:.2f} s: prefill "
@@ -1934,6 +2096,58 @@ def phase_hybrid(torch, ops, S, dev, rehearse):
     # (c) the elastic gate through the full group's segment, _g1
     require(full_g == 1, "Gemma2's full-attention layers are group 1")
     phase_elastic(torch, cfg, params, S, dev, rehearse, tag="hybrid (c) elastic", group=1)
+
+    # (e) the bf16 model at full depth: phase 4's mix without and with spec
+    res = {}
+    for spec in (False, True):
+        eng = LLMEngine(cfg, EngineConfig(
+            max_batch=8, max_model_len=S["hyb_max_len"], page_tokens=TP, decode_horizon=8,
+            prefill_buckets=S["buckets"], num_pages=S["hyb_pages"], kv_dtype=cfg.dtype,
+            prefill_batch=4, spec_decode=spec), params=params, device=dev)
+        rand, greedy, wave1, wave2 = request_mix(S, V, new)
+        got, out1, out2, wall = serve_mix(ops, eng, wave1, wave2)  # spec: the main path
+        by = ops.launch_counts_by_dtype()
+        m = eng.kv_metrics()
+        prof = None if rehearse else profile_decode(torch, eng, rand, greedy, spec=spec)
+        eng.shutdown()
+        del eng
+        th = m["throughput"]
+        res[spec] = r = dict(
+            outs=out1 + out2, spec=m.get("spec"), prof=prof, counts=by,
+            decode=th["decode_tokens"] / max(th["decode_seconds"], 1e-9),
+            step_ms=1e3 * th["decode_seconds"] / max(th["decode_steps"], 1))
+        log(f"[hybrid] (e) {cfg.dtype}, {cfg.num_layers} layers, spec_decode={spec}: "
+            f"{len(r['outs'])} requests; wave 2 in {wall:.2f} s: decode {r['decode']:.1f} tok/s, "
+            f"host wall {r['step_ms']:.2f} ms a {'verify iteration' if spec else 'decode step'}; "
+            f"spec {json.dumps(r['spec'])}; kernel launches by pool type {json.dumps(by)}")
+        if prof:
+            log(f"[hybrid] (e) one {'spec' if spec else 'decode'} dispatch ({prof['rows']} rows "
+                f"x {prof['steps']} {'verify iterations' if spec else 'steps'}) under "
+                f"torch.profiler: wall {prof['wall_ms']:.2f} ms, device busy "
+                f"{prof['device_ms']:.2f} ms ({100 * prof['device_ms'] / prof['wall_ms']:.1f}%), "
+                f"top kernels {json.dumps(prof['top'])}")
+        require(all(len(o) == new for o in r["outs"]), "every hybrid request yields max_new tokens")
+        require(all(0 <= t < V for o in r["outs"] for t in o), "hybrid tokens inside the vocabulary")
+    agree = sum(a == b for a, b in zip(res[True]["outs"], res[False]["outs"]))
+    log(f"[hybrid] (e) decode {res[False]['decode']:.1f} tok/s plain, {res[True]['decode']:.1f} "
+        f"tok/s spec; {res[True]['spec']['tokens_per_iteration']:.3f} tokens per row per verify "
+        f"iteration; {agree}/{len(res[True]['outs'])} requests token-identical to plain decode "
+        f"(bf16 is not exact)")
+    require(res[True]["spec"]["dispatches"] > 0, "the hybrid spec run dispatched no verify")
+    hyb["K4 softcap"] = res[True]["counts"]["K4"].get(f"{cfg.dtype}+softcap", 0)
+    tok_s.update({"spec decode": res[True]["decode"], "mix plain decode": res[False]["decode"]})
+
+    # (f) int8 and e4m3 arenas (their float32 part ran after (a))
+    _, byte_tok_s = phase_byte_pools(
+        torch, ops, cfg, params, S, dev, rehearse, tag="hybrid f",
+        mix_kernels=("K1+softcap", "K2", "K3+softcap"), spec_kernel="K4+softcap",
+        logits_tol=LOGITS_REL_TOL, bf16_pages=S["hyb_pages"], elastic_group=1, parts="124")
+    for mt in ("int8", "fp8"):
+        hyb[f"K4 softcap {mt}"] = byte_counts[f"K4+softcap {mt}"]
+    tok_s.update(byte_tok_s)
+    if not rehearse:
+        for k, n in hyb.items():
+            require(n > 0, f"{k} was never launched on the hybrid path")
     del params
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -2103,10 +2317,16 @@ def main(argv) -> int:
             fn, src, replaces = meta[k]
             meta[f"{k} {tag}"] = (f"{fn}, {mode} pool", src, replaces)
             counts.setdefault(f"{k} {tag}", 0)
-    # the soft-capped mode of K1 and K3 (bf16 pool): launches on phase 10's path
-    for k in ("K1", "K3"):
+    # the soft-capped mode of K1, K1r, K3 and K4 (bf16 pool) and K4's byte
+    # modes: launches on phase 10's paths (K1r is on no engine path)
+    for k in ("K1", "K1r", "K3", "K4"):
         fn, src, replaces = meta[k]
         meta[f"{k} softcap"] = (f"{fn}, soft-capped (logit_softcap)", src, replaces)
+    for tag, mode in modes.items():
+        fn, src, replaces = meta["K4"]
+        meta[f"K4 softcap {tag}"] = (f"{fn}, soft-capped (logit_softcap), {mode} pool", src,
+                                     replaces)
+    counts.setdefault("K1r softcap", 0)
     kernels = []
     for k, (fn, src, replaces) in meta.items():
         r = rows[k]

@@ -10,9 +10,13 @@
 //     (seq_len includes the T fed tokens); it attends keys < base + t + 1
 //     and < seq_len, and with a window also >= max(base + t + 1 - window, 0);
 //   - query row r = t*G + g of kv head h is q head h*G + g of token t;
-//   - scores (q . k) * sm_scale in float32, online softmax in float32; a
-//     bfloat16 pool multiplies bf16 operands (q, k, the softmax weights, v)
-//     with float32 accumulation, a float32 pool multiplies in float32;
+//   - scores (q . k) * sm_scale in float32, with a soft-cap softcap *
+//     tanh(score / softcap) before the mask when softcap > 0 (Gemma2's
+//     attn_logit_softcapping, _verify_body's logit_softcap; 0 is off, and
+//     the launch then runs instances without the cap); online softmax in
+//     float32; a bfloat16 pool multiplies bf16 operands (q, k, the softmax
+//     weights, v) with float32 accumulation, a float32 pool multiplies in
+//     float32;
 //   - byte pools (int8, e4m3): the fed tokens are quantized on write as
 //     the reference does (kv_common.cuh store_f); the bf16 path runs on
 //     their values widened to bf16 (exact), with bf16 q and a float32
@@ -162,8 +166,9 @@ __device__ __forceinline__ const __nv_bfloat16 (
       base + buf * MMA_TILE);
 }
 
-// Pass 1, bfloat16 and byte pools (P): tensor cores.
-template <typename P>
+// Pass 1, bfloat16 and byte pools (P): tensor cores; kCap: the
+// soft-capping instance.
+template <typename P, bool kCap>
 __global__ void __launch_bounds__(THREADS) verify_split_mma_kernel(
     const __nv_bfloat16* __restrict__ q,       // [B, Tq, KH*G, D]
     const P* __restrict__ k_pool,              // [L, P, KH, TP, D]
@@ -175,7 +180,7 @@ __global__ void __launch_bounds__(THREADS) verify_split_mma_kernel(
     float* __restrict__ part_l,
     float* __restrict__ part_acc,              // [B, KH, S, R, D]
     int layer, int num_pages, int KH, int G, int TP, int maxp, int Tq,
-    int window, float sm_scale) {
+    int window, float sm_scale, float softcap) {
   // two buffers of a K tile and a V tile: [2][MMA_KT][MMA_LD] each
   extern __shared__ uint4 smem_tiles[];
   __nv_bfloat16* const k_buf = reinterpret_cast<__nv_bfloat16*>(smem_tiles);
@@ -245,8 +250,8 @@ __global__ void __launch_bounds__(THREADS) verify_split_mma_kernel(
     }
     __syncthreads();  // this tile landed for every thread
     if (warp_live)  // a warp with no query row only copies
-      mma_attend_tile<false>(qa, live, qpos, tile(k_buf, buf), tile(v_buf, buf), t0,
-                             nk, window, sm_scale, ksc, 0.f, o, m, l);  // no soft-capping
+      mma_attend_tile<kCap>(qa, live, qpos, tile(k_buf, buf), tile(v_buf, buf), t0,
+                            nk, window, sm_scale, ksc, softcap, o, m, l);
     __syncthreads();  // this buffer is consumed: the next copy may refill it
   }
 
@@ -271,7 +276,9 @@ __global__ void __launch_bounds__(THREADS) verify_split_mma_kernel(
   }
 }
 
-// Pass 1, float32 pools: CUDA cores, one thread per head_dim lane.
+// Pass 1, float32 pools: CUDA cores, one thread per head_dim lane; kCap:
+// the soft-capping instance.
+template <bool kCap>
 __global__ void __launch_bounds__(THREADS) verify_split_f32_kernel(
     const float* __restrict__ q,              // [B, Tq, KH*G, D]
     const float* __restrict__ k_pool,         // [L, P, KH, TP, D]
@@ -282,7 +289,7 @@ __global__ void __launch_bounds__(THREADS) verify_split_f32_kernel(
     float* __restrict__ part_l,
     float* __restrict__ part_acc,             // [B, KH, S, R, D]
     int layer, int num_pages, int KH, int G, int TP, int maxp, int Tq,
-    int window, float sm_scale) {
+    int window, float sm_scale, float softcap) {
   extern __shared__ float smem[];
   float* q_s = smem;                       // [ROWS][D]
   float* k_s = q_s + ROWS * D;             // [TILE][D + 1]
@@ -328,8 +335,8 @@ __global__ void __launch_bounds__(THREADS) verify_split_f32_kernel(
       }
     }
     __syncthreads();
-    f32_attend_tile<false>(q_s, k_s, v_s, p_s, m_s, l_s, a_s, acc, R, G, base, t0, nk,
-                           window, sm_scale, 0.f);  // no soft-capping
+    f32_attend_tile<kCap>(q_s, k_s, v_s, p_s, m_s, l_s, a_s, acc, R, G, base, t0, nk,
+                          window, sm_scale, softcap);
     __syncthreads();
   }
 
@@ -383,44 +390,46 @@ __global__ void __launch_bounds__(D) verify_merge_kernel(
       A * head_scale(v_scales, layer, KH, h) / (Lsum == 0.f ? 1.f : Lsum));
 }
 
-template <typename P>
+template <typename P, bool kCap>
 int split_mma(dim3 grid, const void* q, const void* k_pool, const void* v_pool,
               const void* page_tables, const void* seq_lens,
               const float* k_scales, float* part_m, float* part_l,
               float* part_acc, int layer, int num_pages, int KH, int G, int TP,
-              int maxp, int Tq, int window, float sm_scale, cudaStream_t stream) {
-  static bool configured = false;  // dynamic shared memory above 48 KB
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        verify_split_mma_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kSmemBF16);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
-  verify_split_mma_kernel<P><<<grid, THREADS, kSmemBF16, stream>>>(
-      (const __nv_bfloat16*)q, (const P*)k_pool, (const P*)v_pool,
-      (const int*)page_tables, (const int*)seq_lens, k_scales, part_m, part_l,
-      part_acc, layer, num_pages, KH, G, TP, maxp, Tq, window, sm_scale);
-  return (int)cudaGetLastError();
-}
-
-int split_f32(dim3 grid, const void* q, const void* k_pool, const void* v_pool,
-              const void* page_tables, const void* seq_lens, float* part_m,
-              float* part_l, float* part_acc, int layer, int num_pages, int KH,
-              int G, int TP, int maxp, int Tq, int window, float sm_scale,
+              int maxp, int Tq, int window, float sm_scale, float softcap,
               cudaStream_t stream) {
   static bool configured = false;  // dynamic shared memory above 48 KB
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        verify_split_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        verify_split_mma_kernel<P, kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kSmemBF16);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  verify_split_mma_kernel<P, kCap><<<grid, THREADS, kSmemBF16, stream>>>(
+      (const __nv_bfloat16*)q, (const P*)k_pool, (const P*)v_pool,
+      (const int*)page_tables, (const int*)seq_lens, k_scales, part_m, part_l,
+      part_acc, layer, num_pages, KH, G, TP, maxp, Tq, window, sm_scale, softcap);
+  return (int)cudaGetLastError();
+}
+
+template <bool kCap>
+int split_f32(dim3 grid, const void* q, const void* k_pool, const void* v_pool,
+              const void* page_tables, const void* seq_lens, float* part_m,
+              float* part_l, float* part_acc, int layer, int num_pages, int KH,
+              int G, int TP, int maxp, int Tq, int window, float sm_scale,
+              float softcap, cudaStream_t stream) {
+  static bool configured = false;  // dynamic shared memory above 48 KB
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        verify_split_f32_kernel<kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)kF32SmemBytes);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  verify_split_f32_kernel<<<grid, THREADS, kF32SmemBytes, stream>>>(
+  verify_split_f32_kernel<kCap><<<grid, THREADS, kF32SmemBytes, stream>>>(
       (const float*)q, (const float*)k_pool, (const float*)v_pool,
       (const int*)page_tables, (const int*)seq_lens, part_m, part_l, part_acc,
-      layer, num_pages, KH, G, TP, maxp, Tq, window, sm_scale);
+      layer, num_pages, KH, G, TP, maxp, Tq, window, sm_scale, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -430,7 +439,7 @@ int launch(const void* q, void* k_pool, void* v_pool, const void* page_tables,
            const void* slot_pages, const void* slot_offsets,
            const float* k_scales, const float* v_scales, void* out,
            void* scratch, int B, int Tq, int layer, int num_pages, int KH,
-           int G, int TP, int maxp, int window, float sm_scale,
+           int G, int TP, int maxp, int window, float sm_scale, float softcap,
            cudaStream_t stream) {
   using New = typename Types<T>::New;
   verify_write_kernel<T><<<B * Tq, THREADS, 0, stream>>>(
@@ -445,15 +454,18 @@ int launch(const void* q, void* k_pool, void* v_pool, const void* page_tables,
   float* part_m = part_acc + (size_t)B * KH * S * R * D;
   float* part_l = part_m + (size_t)B * KH * S * R;
   const dim3 grid(B, KH, S);
+  // the cap picks the instance: an uncapped launch runs code without it
   int rc;
   if constexpr (sizeof(T) == 4)
-    rc = split_f32(grid, q, k_pool, v_pool, page_tables, seq_lens, part_m,
-                   part_l, part_acc, layer, num_pages, KH, G, TP, maxp, Tq,
-                   window, sm_scale, stream);
+    rc = (softcap > 0.f ? split_f32<true> : split_f32<false>)(
+        grid, q, k_pool, v_pool, page_tables, seq_lens, part_m, part_l,
+        part_acc, layer, num_pages, KH, G, TP, maxp, Tq, window, sm_scale,
+        softcap, stream);
   else
-    rc = split_mma<T>(grid, q, k_pool, v_pool, page_tables, seq_lens, k_scales,
-                      part_m, part_l, part_acc, layer, num_pages, KH, G, TP,
-                      maxp, Tq, window, sm_scale, stream);
+    rc = (softcap > 0.f ? split_mma<T, true> : split_mma<T, false>)(
+        grid, q, k_pool, v_pool, page_tables, seq_lens, k_scales, part_m,
+        part_l, part_acc, layer, num_pages, KH, G, TP, maxp, Tq, window,
+        sm_scale, softcap, stream);
   if (rc != 0) return rc;
   verify_merge_kernel<T><<<dim3(B, KH, R), D, 0, stream>>>(
       part_m, part_l, part_acc, (const int*)seq_lens, v_scales,
@@ -467,14 +479,15 @@ int launch(const void* q, void* k_pool, void* v_pool, const void* page_tables,
 // 256), 1); the wrapper allocates it.  T * G <= 64.  q, the tokens and out
 // are in the pool's type for float32 and bf16 pools; for int8 and e4m3
 // pools q is bf16, the tokens and out float32.  k_scales / v_scales: an
-// int8 pool's [L, KH] float32 scales (null: 1).
+// int8 pool's [L, KH] float32 scales (null: 1); softcap: the logit
+// soft-cap (0: off).
 extern "C" int kvc_paged_verify(
     int dtype, const void* q, void* k_pool, void* v_pool,
     const void* page_tables, const void* seq_lens, const void* k_new,
     const void* v_new, const void* slot_pages, const void* slot_offsets,
     const float* k_scales, const float* v_scales, void* out, void* scratch,
     int B, int T, int layer, int num_pages, int KH, int G, int TP, int maxp,
-    int window, float sm_scale, void* stream) {
+    int window, float sm_scale, float softcap, void* stream) {
   if (G < 1 || T < 1 || T * G > ROWS) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
@@ -482,7 +495,7 @@ extern "C" int kvc_paged_verify(
   return launch<P>(q, k_pool, v_pool, page_tables, seq_lens, k_new, v_new,   \
                    slot_pages, slot_offsets, k_scales, v_scales, out, scratch, \
                    B, T, layer, num_pages, KH, G, TP, maxp, window, sm_scale,  \
-                   s)
+                   softcap, s)
   switch (dtype) {
     case kvc::kF32: KVC_DTYPE(float);
     case kvc::kBF16: KVC_DTYPE(__nv_bfloat16);

@@ -27,13 +27,14 @@ Port of the single-device subset of ``kvcached_tpu/engine/engine.py``:
   each group has its own block lists, page table, shm segment (``_g<id>``)
   and page lifetime: a sliding-window group frees the pages that slid out
   of its window, a full-attention group keeps them.  A model with one
-  group keeps 2-D tables; with G groups the decode tables are
-  ``[G, B, max_pages]``, a chunk's pages ``[G, n]`` and a batched
-  prefill's ``[N, G, n]``.  The prefix cache is off for several groups.
+  group keeps 2-D tables; with G groups the decode and verify tables are
+  ``[G, B, max_pages]``, a verify's slots ``[G, B, T]``, a chunk's pages
+  ``[G, n]`` and a batched prefill's ``[N, G, n]``.  int8 scales on layer
+  groups come per model layer (``[num_layers, KH]``).  The prefix cache is
+  off for several groups.
 
-The mesh, pipeline-parallel and stateful paths of the JAX engine, layer
-groups of unequal size, and speculative decoding or byte pools on several
-groups are not ported yet.
+The mesh, pipeline-parallel and stateful paths of the JAX engine, and layer
+groups of unequal size (ROADMAP A11b), are not ported yet.
 
 Sampling draws from ``torch.Generator`` s seeded from the engine step (and
 the request seed for first tokens), so an identical engine history
@@ -342,14 +343,6 @@ class LLMEngine:
         #: leading axis of the page rows the model steps take: none for one
         #: group (2-D tables), G for several
         self._groups = (self.num_groups,) if self.num_groups > 1 else ()
-        if self.num_groups > 1 and ec.spec_decode:
-            raise NotImplementedError(
-                "spec_decode on layer groups (hybrid_verify_step, K4's soft-cap) is "
-                "not ported yet")
-        if self.num_groups > 1 and ec.kv_dtype not in ("bfloat16", "float32"):
-            raise NotImplementedError(
-                f"kv_dtype={ec.kv_dtype!r} on layer groups is not ported yet "
-                "(ROADMAP A11b: hybrid byte pools)")
         self.device = resolve_device(device)
         if params is None:
             params = self.adapter.init_params(seed=seed, device=self.device)
@@ -379,10 +372,12 @@ class LLMEngine:
         self.k_pools, self.v_pools = self.pool.allocate_arrays()
         #: int8 pools: per-(layer, kv head) dequantization scales [L, KH]
         #: for K and V, each ``kv_scale`` until set_kv_scales(); the MLA
-        #: latent pool has one kv head, and its K scales serve the values
+        #: latent pool has one kv head, and its K scales serve the values;
+        #: layer groups take them per model layer, and each group's steps
+        #: its layers' rows
         self.quant_scales = None
         if ec.kv_dtype == "int8":
-            shape = (self.kv_cfg.num_layers, self.kv_cfg.num_kv_heads)
+            shape = self._scales_shape
             self.quant_scales = tuple(
                 torch.full(shape, ec.kv_scale, dtype=torch.float32, device=self.device)
                 for _ in range(2))
@@ -439,16 +434,25 @@ class LLMEngine:
         h.update(sample.tobytes())
         return h.hexdigest()
 
+    @property
+    def _scales_shape(self) -> tuple[int, int]:
+        """The int8 scales' shape: arena layers x kv heads, or for layer
+        groups model layers x kv heads (the reference's form)."""
+        layers = self.adapter.num_layers if self.num_groups > 1 else self.kv_cfg.num_layers
+        return (layers, self.kv_cfg.num_kv_heads)
+
     def set_kv_scales(self, k_scales, v_scales) -> None:
         """int8 KV: install per-(layer, kv head) dequantization scales,
-        [L, KH] float32 each; the next step uses them.  Raises ValueError
-        on any other shape."""
-        want = (self.kv_cfg.num_layers, self.kv_cfg.num_kv_heads)
+        [L, KH] float32 each (L: arena layers, or model layers for layer
+        groups); the next step uses them.  Raises ValueError on any other
+        shape."""
+        want = self._scales_shape
         ks, vs = (torch.as_tensor(np.asarray(a), dtype=torch.float32).to(self.device)
                   for a in (k_scales, v_scales))
         if tuple(ks.shape) != want or tuple(vs.shape) != want:
+            what = "model" if self.num_groups > 1 else "arena"
             raise ValueError(
-                f"set_kv_scales: expected shape {want} (arena layers x kv heads), "
+                f"set_kv_scales: expected shape {want} ({what} layers x kv heads), "
                 f"got k={tuple(ks.shape)} v={tuple(vs.shape)}")
         self.quant_scales = (ks, vs)
 
@@ -942,7 +946,9 @@ class LLMEngine:
         gamma = T-1 tokens per row from the ring of its last W tokens
         (:func:`_ngram_draft`), routes the fed tokens to their slots,
         verifies them in one multi-query forward and accepts per
-        :func:`_spec_accept`.  seq_lens0 counts tokens whose KV is written.
+        :func:`_spec_accept`.  seq_lens0 counts tokens whose KV is written;
+        ``page_tables`` is [B, max_pages], or [G, B, max_pages] for layer
+        groups (each group's slots from its own table).
         Returns [S, B, T+1] on the host, in one transfer: each iteration's
         emitted tokens and, last, how many of them count (accepted drafts
         + 1)."""
@@ -952,6 +958,7 @@ class LLMEngine:
         ring = self._dev(ring0)
         seq_lens = self._dev(np.maximum(seq_lens0, 0))
         tables = self._dev(page_tables)
+        tables3 = tables.reshape((-1,) + tables.shape[-2:])  # [G, B, max_pages]
         # position cap (the final token's slot) is never consumed, and plain
         # decode leaves it unwritten: writes go to the zero page from the cap
         # on, also for a row whose length is pinned at its cap
@@ -970,8 +977,9 @@ class LLMEngine:
             raw_pos = seq_lens[:, None] + steps
             pos = torch.minimum(raw_pos, cap[:, None])
             overflow = raw_pos >= cap[:, None]  # incl. padded rows (max_lens 0)
-            slot_pages = torch.where(overflow, torch.zeros_like(pos),
-                                     tables[rows, (pos // P).long()])
+            slot_pages = torch.where(
+                overflow[None], 0, tables3[:, rows, (pos // P).long()],
+            ).reshape(self._groups + (B, T))  # [B, T], or [G, B, T]
             # unclamped: query j sits at kv_lens - T + j, so clamping at the
             # cap would shift every query of the row; overflow queries'
             # outputs are discarded and their writes go to the zero page
@@ -1020,7 +1028,7 @@ class LLMEngine:
             return
         ring = np.full((B, W), -1, np.int32)  # -1 pad: matches no n-gram
         seq_lens0 = np.zeros(B, np.int32)
-        page_tables = np.zeros((B, self.max_pages_per_seq), np.int32)
+        page_tables = np.zeros(self._groups + (B, self.max_pages_per_seq), np.int32)
         max_lens = np.zeros(B, np.int32)  # 0 for padded rows: all discarded
         temps = np.zeros(B, np.float32)
         top_ks = np.zeros(B, np.int64)
@@ -1029,7 +1037,7 @@ class LLMEngine:
             tail = seq.tokens[-W:]
             ring[i, W - len(tail):] = tail
             seq_lens0[i] = len(seq.tokens) - 1  # KV written so far
-            page_tables[i] = self._phys_row(seq)
+            page_tables[..., i, :] = self._phys_rows(seq)
             max_lens[i] = self._row_cap(seq)
             sp = seq.req.sampling
             temps[i], top_ks[i], top_ps[i] = sp.temperature, sp.top_k, sp.top_p

@@ -6,6 +6,7 @@ from .hybrid import (
     hybrid_decode_step,
     hybrid_prefill_batch_step,
     hybrid_prefill_step,
+    hybrid_verify_step,
     init_hybrid_params,
 )
 from .llama import (
@@ -32,6 +33,7 @@ __all__ = [
     "hybrid_decode_step",
     "hybrid_prefill_batch_step",
     "hybrid_prefill_step",
+    "hybrid_verify_step",
     "init_hybrid_params",
     "LlamaConfig",
     "LlamaModel",

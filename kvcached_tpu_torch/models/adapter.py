@@ -175,9 +175,11 @@ class HybridAdapter:
         return hybrid_prefill_batch_step(params, self.cfg, *args, **kw)
 
     def verify_step(self, params, *args, **kw):
-        raise NotImplementedError(
-            "speculative decoding on the hybrid family (hybrid_verify_step, K4's "
-            "soft-cap) is not ported yet")
+        """Tables [G, B, max_pages], slots [G, B, T]; logits at every
+        position."""
+        from .hybrid import hybrid_verify_step
+
+        return hybrid_verify_step(params, self.cfg, *args, **kw)
 
 
 def as_adapter(model) -> ModelAdapter:

@@ -16,11 +16,15 @@ The Gemma2 knobs: a tanh-approximated GELU MLP, ``(1 + w)`` RMSNorm
 weights, embeddings scaled by ``sqrt(hidden)`` (rounded to the parameters'
 type first), post-attention and post-feedforward norms on the residual
 branches, ``sm_scale = query_pre_attn_scalar ** -0.5``, and logit
-soft-capping of the attention scores (inside K1 and K3, ``logit_softcap``)
-and of the final logits.
+soft-capping of the attention scores (inside K1, K3 and K4,
+``logit_softcap``) and of the final logits.
 
-Not ported yet (ROADMAP A11b, and the hybrid spec path): unequal groups on
-per-group arenas, int8 and e4m3 pools, and the verify step.
+The arena may hold int8 or float8_e4m3fn pages, as the Llama family's
+pools may: int8 scales come per model layer, ``[num_layers, KH]``, and
+each group's layers take their rows (:func:`_group_scales`).  The verify
+step (:func:`hybrid_verify_step`) serves speculative decoding.
+
+Not ported yet (ROADMAP A11b): unequal groups on per-group arenas.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ from ..ops.paged_attention import (
     BYTE_DTYPES,
     paged_attention_decode,
     paged_attention_decode_plain,
+    paged_attention_verify,
+    paged_attention_verify_plain,
     write_prefill_kv,
     write_prefill_kv_plain,
 )
@@ -293,14 +299,33 @@ def _final_logits(x, params, cfg):
     return _cap_logits(lm_head_logits(x, params.lm_head), cfg)
 
 
-def _check_pools(k_pools, quant_scales):
-    """The ported form: one shared float32 or bf16 arena."""
+def _check_pools(k_pools):
+    """The ported form: one shared arena (of any pool type)."""
     if isinstance(k_pools, (tuple, list)):
         raise NotImplementedError(
             "per-group arenas (unequal layer groups) are not ported yet (ROADMAP A11b)")
-    if k_pools.dtype in BYTE_DTYPES or quant_scales is not None:
-        raise NotImplementedError(
-            "int8 and e4m3 pools on the hybrid family are not ported yet (ROADMAP A11b)")
+
+
+def _group_scales(cfg, k_pools, quant_scales):
+    """The attention kernels' int8 scale keywords of each group: the
+    per-model-layer scales (k, v), ``[num_layers, KH]`` each, split into
+    the group's arena-shaped ``[L_g, KH]`` (its layers in model order are
+    its arena layers, so a gather per group is exact; the reference's
+    ``_group_scales``).  Empty for pools without scales."""
+    G = len(cfg.group_windows)
+    if quant_scales is None or k_pools.dtype not in BYTE_DTYPES:
+        return [{}] * G
+    ks, vs = quant_scales
+    if tuple(ks.shape[:1]) != (cfg.num_layers,) or ks.shape != vs.shape:
+        raise ValueError(
+            f"layer groups take int8 scales per model layer, [{cfg.num_layers}, KH]; "
+            f"got k={tuple(ks.shape)} v={tuple(vs.shape)}")
+    out = []
+    for g in range(G):
+        sel = torch.tensor([i for i, gx in enumerate(cfg.group_index) if gx == g],
+                           device=ks.device)
+        out.append(dict(k_scales=ks[sel], v_scales=vs[sel]))
+    return out
 
 
 def _group_ropes(cfg, positions, D):
@@ -341,13 +366,16 @@ def hybrid_decode_step(
     token into arena layer ``layer_in_group[l]`` through its group's slot
     and attends over its group's pages with the group's window and the
     attention soft-cap (K1).  Returns (logits [B, V] float32, k_pools,
-    v_pools); the pools are written in place.  ``reference_attention`` as
+    v_pools); the pools are written in place.  Byte pools: ``quant_scales``
+    = (k_scales, v_scales), each ``[num_layers, KH]`` per model layer
+    (int8); ``reference_attention`` as
     in :func:`~kvcached_tpu_torch.models.llama.llama_decode_step`."""
-    _check_pools(k_pools, quant_scales)
+    _check_pools(k_pools)
     decode = paged_attention_decode_plain if reference_attention else paged_attention_decode
     B = tokens.shape[0]
     H, KH, D = _heads(params, cfg)
     cast, _ = _kernel_inputs(k_pools.dtype, None)
+    scales = _group_scales(cfg, k_pools, quant_scales)
     ropes = _group_ropes(cfg, positions, D)
     x = _embed(params, tokens, cfg)  # [B, E]
     for i, g, lg, window in _layers(cfg):
@@ -359,6 +387,7 @@ def hybrid_decode_step(
             cast(q), k_pools, v_pools, page_tables[g], seq_lens, lg,
             cast(k), cast(v), slot_pages[g], slot_offsets,
             window=window, sm_scale=_sm_scale(cfg), logit_softcap=cfg.attn_softcap,
+            **scales[g],
         )
         x = _attn_residual(x, attn.reshape(B, H * D), lp, cfg)
         x = _mlp_residual(x, lp, cfg)
@@ -384,8 +413,9 @@ def hybrid_prefill_batch_step(
     through its group's page row (K2) and attends with its group's window
     and the soft-cap (K3); identical to N serial :func:`hybrid_prefill_step`
     calls.  Returns (logits at each row's last real token [N, V] float32,
-    k_pools, v_pools)."""
-    _check_pools(k_pools, quant_scales)
+    k_pools, v_pools).  ``quant_scales`` as in :func:`hybrid_decode_step`
+    (the page writer takes each model layer's row)."""
+    _check_pools(k_pools)
     if reference_attention:
         write, attend = write_prefill_kv_plain, paged_prefill_attention_batch_plain
     else:
@@ -393,6 +423,7 @@ def hybrid_prefill_batch_step(
     N, T = tokens.shape
     H, KH, D = _heads(params, cfg)
     cast, _ = _kernel_inputs(k_pools.dtype, None)
+    scales = _group_scales(cfg, k_pools, quant_scales)
     q_starts = q_starts.to(torch.int32)
     true_lens = true_lens.to(torch.int32)
     kv_lens = q_starts + true_lens
@@ -413,10 +444,13 @@ def hybrid_prefill_batch_step(
             cast(k).permute(2, 0, 1, 3).reshape(KH, N * T, D),
             cast(v).permute(2, 0, 1, 3).reshape(KH, N * T, D),
             flat_pages[g], lg,
+            **({"k_scale": quant_scales[0][i], "v_scale": quant_scales[1][i]}
+               if scales[g] else {}),
         )
         attn = attend(
             cast(q), k_pools, v_pools, tables[g], q_starts, kv_lens, lg,
             window=window, sm_scale=_sm_scale(cfg), logit_softcap=cfg.attn_softcap,
+            **scales[g],
         )  # [N, T, H, D]
         x = _attn_residual(x, attn.reshape(N, T, H * D), lp, cfg)
         x = _mlp_residual(x, lp, cfg)
@@ -451,3 +485,49 @@ def hybrid_prefill_step(
         quant_scales=quant_scales, reference_attention=reference_attention,
     )
     return logits[0], k_pools, v_pools
+
+
+def hybrid_verify_step(
+    params: HybridModel,
+    cfg: HybridConfig,
+    tokens: torch.Tensor,  # [B, T] int: [last_token, draft_1 .. draft_{T-1}]
+    positions: torch.Tensor,  # [B, T] int
+    k_pools: torch.Tensor,  # [L_g, num_pages, KH, page_tokens, D] shared arena
+    v_pools: torch.Tensor,
+    page_tables: torch.Tensor,  # [G, B, max_pages] int32 PHYSICAL ids per group
+    slot_pages: torch.Tensor,  # [G, B, T] int32 write page per group (0 = discard)
+    slot_offsets: torch.Tensor,  # [B, T] int32
+    seq_lens: torch.Tensor,  # [B] int32 INCLUDING all T fed tokens
+    *,
+    quant_scales: tuple | None = None,
+    reference_attention: bool = False,
+):
+    """Speculative-decode verification on layer groups: each layer writes
+    the T fed tokens into arena layer ``layer_in_group[l]`` through its
+    group's slots and verifies them over its group's pages with the
+    group's window and the attention soft-cap (K4); full-attention and
+    sliding groups alike.  Returns (logits [B, T, V] float32, k_pools,
+    v_pools); the pools are written in place.  ``quant_scales`` and
+    ``reference_attention`` as in :func:`hybrid_decode_step`."""
+    _check_pools(k_pools)
+    verify = paged_attention_verify_plain if reference_attention else paged_attention_verify
+    B, T = tokens.shape
+    H, KH, D = _heads(params, cfg)
+    cast, _ = _kernel_inputs(k_pools.dtype, None)
+    scales = _group_scales(cfg, k_pools, quant_scales)
+    ropes = _group_ropes(cfg, positions, D)
+    x = _embed(params, tokens, cfg)  # [B, T, E]
+    for i, g, lg, window in _layers(cfg):
+        lp = params.layer(i)
+        h = _norm(x, lp["attn_norm"], cfg)
+        q, k, v = qkv_heads(h, lp, H, KH, D, cfg.rms_eps)
+        q, k = apply_rope(q, *ropes[g]), apply_rope(k, *ropes[g])
+        attn, _, _ = verify(
+            cast(q), k_pools, v_pools, page_tables[g], seq_lens, lg,
+            cast(k), cast(v), slot_pages[g], slot_offsets,
+            window=window, sm_scale=_sm_scale(cfg), logit_softcap=cfg.attn_softcap,
+            **scales[g],
+        )  # [B, T, H, D]
+        x = _attn_residual(x, attn.reshape(B, T, H * D), lp, cfg)
+        x = _mlp_residual(x, lp, cfg)
+    return _final_logits(x, params, cfg), k_pools, v_pools

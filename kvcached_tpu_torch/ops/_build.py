@@ -43,7 +43,7 @@ _SIGNATURES = {
                       "kvc_prefill_write_quant": [_I] + [_P] * 7 + [_I] * 5 + [_P],
                       "kvc_prefill_write_single": [_P] * 3 + [_I] * 5 + [_P]},
     "paged_prefill": {"kvc_paged_prefill": [_I] + [_P] * 9 + [_I] * 9 + [_F, _F, _P]},
-    "paged_verify": {"kvc_paged_verify": [_I] + [_P] * 13 + [_I] * 9 + [_F, _P]},
+    "paged_verify": {"kvc_paged_verify": [_I] + [_P] * 13 + [_I] * 9 + [_F, _F, _P]},
     "mla_attend": {"kvc_mla_attend": [_I] + [_P] * 11 + [_I] * 9 + [_F, _P],
                    "kvc_mla_wave_blocks": [_I, _I, ctypes.POINTER(_I)]},
 }

@@ -42,9 +42,10 @@ scores, the V scale into the output; a latent pool has one scale a layer,
 value rounded to nearest even with NaN past ±464 (:func:`to_e4m3`); their
 matmuls take bf16 operands with float32 accumulation, as the TPU kernels'
 do.  Logit soft-capping (Gemma2's ``attn_logit_softcapping``: ``cap *
-tanh(score / cap)`` before the mask) is ported in K1 and K3
-(``logit_softcap``, on every pool type); in K1r, K4 and the MLA modes it
-raises ``NotImplementedError``, as do the MLA mode of the read-only
+tanh(score / cap)`` before the mask) is ported in K1, K1r, K3 and K4
+(``logit_softcap``, on every pool type; the cap picks a capping instance
+of the kernel at launch); in the MLA modes it raises
+``NotImplementedError``, as do the MLA mode of the read-only
 :func:`paged_attention` and the MLA mode with several kv heads or a window:
 they are not ported yet.  Each wrapper counts its launches in
 ``<wrapper>.launches`` and by pool type in ``<wrapper>.launches_by_dtype``,
@@ -102,9 +103,7 @@ def _unsupported(mla_v_dim=None, logit_softcap=None, pool_dtype=None) -> None:
     if mla_v_dim is not None:
         raise NotImplementedError("the MLA single-buffer mode is not ported yet")
     if logit_softcap is not None:
-        raise NotImplementedError(
-            "logit soft-capping is ported in K1 (paged_attention_decode) and K3 "
-            "(paged_prefill_attention_batch) only, not yet here")
+        raise NotImplementedError("logit soft-capping in the MLA modes is not ported yet")
     if pool_dtype is not None and pool_dtype not in KERNEL_DTYPES:
         raise NotImplementedError(
             f"{pool_dtype} pools are not ported yet "
@@ -507,19 +506,21 @@ def paged_attention(
     """K1r: read-only paged attention (no KV write).  Returns [B, QH, D].
 
     Replaces the Pallas ``_readonly_kernel``: K1's CUDA kernel with the
-    write off, bound and design as K1."""
-    _unsupported(mla_v_dim, logit_softcap, k_pool.dtype)
+    write off, bound and design as K1, ``logit_softcap`` as in
+    :func:`paged_attention_decode`."""
+    _unsupported(mla_v_dim, pool_dtype=k_pool.dtype)
+    cap = _softcap_arg(logit_softcap)
     if k_pool.dim() == 4:
         k_pool, v_pool = k_pool[None], v_pool[None]
     if _on_cpu(q, k_pool, v_pool, page_tables, seq_lens):
         return paged_attention_decode_plain(
             q, k_pool, v_pool, page_tables, seq_lens, layer, None, None,
             None, None, sm_scale=sm_scale, window=window, write_kv=False,
-            k_scales=k_scales, v_scales=v_scales)[0]
+            k_scales=k_scales, v_scales=v_scales, logit_softcap=logit_softcap)[0]
     out = _decode_launch(q, k_pool, v_pool, page_tables, seq_lens, layer,
                          None, None, None, None, sm_scale, window, False,
-                         k_scales, v_scales)
-    _count(paged_attention, k_pool.dtype)
+                         k_scales, v_scales, cap)
+    _count(paged_attention, k_pool.dtype, cap)
     return out
 
 
@@ -616,13 +617,14 @@ def write_prefill_kv(
 def paged_attention_verify_plain(
     q, k_pool, v_pool, page_tables, seq_lens, layer,
     k_new, v_new, slot_pages, slot_offsets, *, sm_scale=None, window=None,
-    mla_v_dim=None, k_scales=None, v_scales=None,
+    mla_v_dim=None, k_scales=None, v_scales=None, logit_softcap=None,
 ):
     """Plain PyTorch version of K4 and, with ``mla_v_dim``, of K5's verify
     form (``v_pool`` and ``v_new`` unused): the same function as the CUDA
     kernels, in dense tensor ops.  Keys past the page-table width do not
     exist (the table is gathered whole), as the kernels clamp their range.
-    Byte pools as in :func:`paged_attention_decode_plain`."""
+    Byte pools and ``logit_softcap`` as in
+    :func:`paged_attention_decode_plain`."""
     B, T, QH, D = q.shape
     KH = k_pool.shape[2]
     G = QH // KH
@@ -643,6 +645,7 @@ def paged_attention_verify_plain(
     s = torch.matmul(_op_round(qg, mm), k.transpose(-1, -2)) * sm_scale
     if ksc is not None:
         s = s * ksc[:, None, None]
+    s = _soft_cap(s, logit_softcap)
     pos = torch.arange(k.shape[2], device=q.device)[None, None]
     # query row r = t*G + g sits at seq_len - T + t and sees keys below
     # seq_len - T + t + 1
@@ -690,7 +693,7 @@ def paged_attention_verify(
     T*G query rows of the head (bf16 on the tensor cores), and merges the
     blocks' partials.
 
-    Byte pools as in :func:`paged_attention_decode`.
+    Byte pools and ``logit_softcap`` as in :func:`paged_attention_decode`.
 
     ``mla_v_dim``: K5's verify form (``_verify_write_kernel_mla``), as in
     :func:`paged_attention_decode`."""
@@ -706,13 +709,14 @@ def paged_attention_verify(
                 q, k_pool, page_tables, seq_lens, layer, k_new, slot_pages,
                 slot_offsets, sm_scale=sm_scale, mla_v_dim=mla_v_dim, k_scales=ks)
         return out, k_pool, None
-    _unsupported(mla_v_dim, logit_softcap, k_pool.dtype)
+    _unsupported(pool_dtype=k_pool.dtype)
+    cap = _softcap_arg(logit_softcap)
     if _on_cpu(q, k_pool, v_pool, page_tables, seq_lens, k_new, v_new,
                slot_pages, slot_offsets):
         return paged_attention_verify_plain(
             q, k_pool, v_pool, page_tables, seq_lens, layer, k_new, v_new,
             slot_pages, slot_offsets, sm_scale=sm_scale, window=window,
-            k_scales=k_scales, v_scales=v_scales)
+            k_scales=k_scales, v_scales=v_scales, logit_softcap=logit_softcap)
     L, P, KH, TP, D = _require_pools(k_pool, v_pool)
     B, T, QH, Dq = q.shape
     if Dq != D or QH % KH:
@@ -752,10 +756,10 @@ def paged_attention_verify(
         page_tables.data_ptr(), seq_lens.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), slot_pages.data_ptr(), slot_offsets.data_ptr(),
         _ptr(ks), _ptr(vs), out.data_ptr(), scratch.data_ptr(), B, T, layer, P,
-        KH, G, TP, maxp, int(window or 0), float(sm_scale), _stream(q),
+        KH, G, TP, maxp, int(window or 0), float(sm_scale), cap, _stream(q),
     )
     _build.check(rc, "paged_verify")
-    _count(paged_attention_verify, dt)
+    _count(paged_attention_verify, dt, cap)
     return out.to(q.dtype), k_pool, v_pool
 
 

@@ -7,18 +7,21 @@ prefill) and the port's engine on the CPU (batched prefill) serve the same
 requests with the same float32 parameters and float32 pools: greedy tokens
 must be identical across a batched prefill of three prompts and a prompt
 longer than the largest prefill bucket (chunked prefill), whose decode
-steps the sliding group's window cuts.  The toy carries the Gemma2 knobs
-with mild caps (a final cap far below the logits' spread would make
+steps the sliding group's window cuts; with speculative decoding too (the
+hybrid verify step, every group drafting).  The toy carries the Gemma2
+knobs with mild caps (a final cap far below the logits' spread would make
 near-ties, and greedy parity would then hang on float32 summation order).
 
 Port only: the sliding group frees the pages that slid out of its window
 while the full group keeps every page, and its pages return to the shared
 arena; each group has its shm segment, and a limit written on group 1's
 (``_g1``) resizes that group alone, with outputs md5-identical to an
-unconstrained run; speculative decoding and byte pools on a hybrid model
-raise.  The file holds two tests: the port's files run last in Tier-1
-(loadfile queues files by their count of collected items), and the new
-ones should not push older ones out.
+unconstrained run; on int8 and e4m3 arenas the reference's own criterion
+(``tests/test_int8_kv.py``'s ``test_equal_groups_deterministic_spec_and_
+batched``); unequal groups and per-group arenas raise.  The file holds four
+tests: the port's files run last in Tier-1 (loadfile queues files by their
+count of collected items), and the new ones should not push older ones
+out.
 """
 
 import hashlib
@@ -36,7 +39,7 @@ from kvcached_tpu.models.hybrid import HybridConfig as JHybridConfig
 from kvcached_tpu_torch import shm
 from kvcached_tpu_torch.engine import EngineConfig, LLMEngine, SamplingParams
 from kvcached_tpu_torch.models.adapter import HybridAdapter
-from kvcached_tpu_torch.models.hybrid import HybridConfig
+from kvcached_tpu_torch.models.hybrid import HybridConfig, hybrid_verify_step, init_hybrid_params
 from kvcached_tpu_torch.weights import params_from_jax
 from test_torch_hybrid_model import numpy_hybrid_params
 from test_torch_llama import jax_fast_compile
@@ -93,17 +96,70 @@ def test_greedy_tokens_match_jax_engine(served):
     assert m["prefill_batch"]["prompts_per_dispatch"] == 3, "the short prompts were batched"
     assert [g["window"] for g in m["groups"]] == [None, 32]
     assert m["prefix_cache"]["hits"] == 0, "the prefix cache is off for layer groups"
-    # spec decode (the hybrid verify step, K4's soft-cap), byte pools and
-    # unequal groups on the hybrid family are later slices: they raise
-    with pytest.raises(NotImplementedError, match="spec_decode"):
-        _engine(cfg, params, spec_decode=True)
-    for kv in ("int8", "float8_e4m3fn"):
-        with pytest.raises(NotImplementedError, match="A11b"):
-            _engine(cfg, params, kv_dtype=kv)
+    # unequal groups (per-group arenas) on the hybrid family are a later
+    # slice: they raise, in the adapter and in the model steps
     with pytest.raises(NotImplementedError, match="A11b"):
         HybridAdapter(HybridConfig.toy(num_layers=3))  # groups of 2 and 1 layers
-    with pytest.raises(NotImplementedError):
-        HybridAdapter(cfg).verify_step(params)
+    with pytest.raises(NotImplementedError, match="A11b"):
+        hybrid_verify_step(params, cfg, None, None, (None, None), (None, None),
+                           None, None, None, None)
+
+
+def test_spec_tokens_match_jax_engine(served):
+    """Speculative decoding on the hybrid family (spec_exact at float32):
+    the JAX engine's plain-decode tokens, through verify dispatches."""
+    cfg, params, want = served
+    eng = _engine(cfg, params, prefill_batch=4, spec_decode=True, spec_exact=True)
+    try:
+        got = [o.output_tokens for o in eng.generate(
+            _workload(), SamplingParams(max_new_tokens=MAX_NEW))]
+        spec = eng.kv_metrics()["spec"]
+    finally:
+        eng.shutdown()
+    assert got == want
+    assert spec["dispatches"] > 0 and spec["iterations"] > 0, spec
+
+
+def test_byte_arenas_reference_criterion():
+    """The reference's criterion for int8 layer groups
+    (``tests/test_int8_kv.py``, ``TestInt8HybridGroups``), on the port for
+    int8 and e4m3 arenas: output deterministic, first tokens equal float32's,
+    spec decode equal to plain decode, batched prefill equal to plain; int8
+    scales come per model layer, and the arena's shape is refused."""
+    cfg = HybridConfig.toy(num_layers=4, window=32, dtype="float32")
+    params = init_hybrid_params(cfg, seed=0, device="cpu")
+    prompts = [[1, 2, 3, 4, 5, 6, 7], [9] * 5]
+    base = dict(max_batch=3, max_model_len=128, page_tokens=32, decode_horizon=4,
+                prefill_buckets=(32, 64), num_pages=32, kv_scale=0.05,
+                enable_prefix_caching=False)
+
+    def run(**kw):
+        eng = LLMEngine(cfg, EngineConfig(**{**base, **kw}), params=params, device="cpu")
+        try:
+            return [o.output_tokens for o in eng.generate(
+                prompts, SamplingParams(max_new_tokens=8))]
+        finally:
+            eng.shutdown()
+
+    ref = run(kv_dtype="float32")
+    for kv in ("int8", "float8_e4m3fn"):
+        a = run(kv_dtype=kv)
+        assert a == run(kv_dtype=kv), f"{kv}: not deterministic"
+        assert [t[0] for t in a] == [t[0] for t in ref], f"{kv}: first tokens diverged"
+        assert run(kv_dtype=kv, spec_decode=True, spec_gamma=2, spec_horizon=2) == a, kv
+        assert run(kv_dtype=kv, prefill_batch=2) == a, f"{kv}: batched prefill diverged"
+
+    eng = LLMEngine(cfg, EngineConfig(**base, kv_dtype="int8"), params=params, device="cpu")
+    try:
+        L, KH = cfg.num_layers, cfg.num_kv_heads
+        assert tuple(eng.quant_scales[0].shape) == (L, KH), "per model layer"
+        scales = np.linspace(0.04, 0.06, L * KH, dtype=np.float32).reshape(L, KH)
+        eng.set_kv_scales(scales, scales)
+        assert torch.equal(eng.quant_scales[1], torch.from_numpy(scales))
+        with pytest.raises(ValueError, match="model layers"):
+            eng.set_kv_scales(scales[:eng.kv_cfg.num_layers], scales[:eng.kv_cfg.num_layers])
+    finally:
+        eng.shutdown()
 
 
 def test_group_lifetimes_arena_and_g1_limit(served):

@@ -136,9 +136,10 @@ def test_softcap_plain_matches_jax():
 
 
 def test_softcap_wrapper_contract(monkeypatch):
-    """On CPU tensors K1 and K3 run their plain versions with the cap and
-    count no launch; K1r, K4 and the MLA modes refuse a cap; a CUDA tensor
-    (stubbed: no card here) launches or raises, never the plain version."""
+    """On CPU tensors K1, K1r, K3 and K4 run their plain versions with the
+    cap and count no launch; the MLA modes refuse a cap (not ported yet); a
+    CUDA tensor (stubbed: no card here) launches or raises, never the plain
+    version."""
     rng = np.random.default_rng(2)
     q, kp, vp, pt, sl, kn, vn, sp, so, _, _ = map(_t, _decode_case(rng, False))
     counts = ops.launch_counts()
@@ -153,17 +154,26 @@ def test_softcap_wrapper_contract(monkeypatch):
     want = ops.paged_prefill_attention_batch_plain(qp, kp, vp, pt[:1], qs, kl, 0,
                                                    logit_softcap=CAP)[0]
     assert torch.equal(out, want)
+    out = ops.paged_attention(q, kp, vp, pt, sl, 0, logit_softcap=CAP)
+    want = ops.paged_attention_decode_plain(q, kp, vp, pt, sl, 0, None, None, None, None,
+                                            write_kv=False, logit_softcap=CAP)[0]
+    assert torch.equal(out, want)
+    fed = (q[:, None], kp, vp, pt, sl, 0, kn[:, None], vn[:, None], sp[:, None], so[:, None])
+    out = ops.paged_attention_verify(*fed, logit_softcap=CAP)[0]
+    want = ops.paged_attention_verify_plain(*fed, logit_softcap=CAP)[0]
+    assert torch.equal(out, want)
     assert ops.launch_counts() == counts, "the plain path counts no launch"
     with pytest.raises(ValueError):
         ops.paged_attention_decode(q, kp, vp, pt, sl, 0, kn, vn, sp, so, logit_softcap=0.0)
-    with pytest.raises(NotImplementedError):
-        ops.paged_attention(q, kp, vp, pt, sl, 0, logit_softcap=CAP)
-    with pytest.raises(NotImplementedError):
-        ops.paged_attention_verify(q[:, None], kp, vp, pt, sl, 0, kn[:, None], vn[:, None],
-                                   sp[:, None], so[:, None], logit_softcap=CAP)
+    with pytest.raises(ValueError):
+        ops.paged_attention_verify(*fed, logit_softcap=-1.0)
     with pytest.raises(NotImplementedError):
         ops.paged_attention_decode(q, kp[:, :, :1], None, pt, sl, 0, kn[:, :1], None, sp,
                                    so, mla_v_dim=64, logit_softcap=CAP)
+    with pytest.raises(NotImplementedError):
+        ops.paged_attention_verify(q[:, None], kp[:, :, :1], None, pt, sl, 0, kn[:, None, :1],
+                                   None, sp[:, None], so[:, None], mla_v_dim=64,
+                                   logit_softcap=CAP)
 
     pa = importlib.import_module("kvcached_tpu_torch.ops.paged_attention")
     pp = importlib.import_module("kvcached_tpu_torch.ops.paged_prefill")
@@ -176,11 +186,15 @@ def test_softcap_wrapper_contract(monkeypatch):
     for mod in (pa, pp):
         monkeypatch.setattr(mod, "_on_cpu", lambda *ts: False)
     ran = []
-    monkeypatch.setattr(pa, "paged_attention_decode_plain", lambda *a, **k: ran.append(a))
-    monkeypatch.setattr(pp, "paged_prefill_attention_batch_plain",
-                        lambda *a, **k: ran.append(a))
+    for mod, name in ((pa, "paged_attention_decode_plain"), (pa, "paged_attention_verify_plain"),
+                      (pp, "paged_prefill_attention_batch_plain")):
+        monkeypatch.setattr(mod, name, lambda *a, **k: ran.append(a))
     with pytest.raises(RuntimeError, match="build refused"):
         pa.paged_attention_decode(q, kp, vp, pt, sl, 0, kn, vn, sp, so, logit_softcap=CAP)
+    with pytest.raises(RuntimeError, match="build refused"):
+        pa.paged_attention(q, kp, vp, pt, sl, 0, logit_softcap=CAP)
+    with pytest.raises(RuntimeError, match="build refused"):
+        pa.paged_attention_verify(*fed, logit_softcap=CAP)
     with pytest.raises(RuntimeError, match="build refused"):
         pp.paged_prefill_attention_batch(qp, kp, vp, pt[:1], qs, kl, 0, logit_softcap=CAP)
     assert not ran, "the plain versions never ran"

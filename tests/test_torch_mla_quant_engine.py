@@ -50,16 +50,18 @@ LOGITS_ATOL = 5e-3
 BOUNDARY_SHARE = 1e-3
 
 
-def _same_pools_but_boundaries(mode, tk, jk, what):
+def _same_pools_but_boundaries(mode, tk, jk, what, share=BOUNDARY_SHARE, written=None):
     """The two packages' byte pools hold the same codes, except where the
     latent entries' float32 rounding put a value on the other side of a
     quantization boundary: there the codes are neighbours (one int8 step,
-    or adjacent e4m3 magnitudes of one sign), at no more than
-    ``BOUNDARY_SHARE`` of the written values."""
+    or adjacent e4m3 magnitudes of one sign), at no more than ``share`` of
+    the ``written`` values (by default the pool's nonzero codes: it started
+    at zero)."""
     a, b = _bytes(tk), _bytes(jk)
     bad = a != b
-    written = int((a != 0).sum())
-    assert written > 0 and bad.sum() <= BOUNDARY_SHARE * written, (what, int(bad.sum()), written)
+    if written is None:
+        written = int((a != 0).sum())
+    assert written > 0 and bad.sum() <= share * written, (what, int(bad.sum()), written)
     if mode == "int8":
         step = np.abs(a[bad].view(np.int8).astype(int) - b[bad].view(np.int8).astype(int))
         assert (step == 1).all(), (what, a[bad].view(np.int8), b[bad].view(np.int8))

@@ -41,7 +41,8 @@ torch.set_num_threads(1)
 ATOL = 1e-5
 L, P, KH, QH, TP, D = 2, 8, 2, 4, 32, 128
 MODES = ("int8", "float8_e4m3fn")
-NP_DTYPE = {"int8": np.int8, "float8_e4m3fn": ml_dtypes.float8_e4m3fn}
+NP_DTYPE = {"int8": np.int8, "float8_e4m3fn": ml_dtypes.float8_e4m3fn,
+            "float32": np.float32, "bfloat16": ml_dtypes.bfloat16}
 
 
 def _scales(rng):
@@ -50,7 +51,8 @@ def _scales(rng):
 
 
 def _pools(rng, mode, ks, vs):
-    """Random K/V pools of ``mode`` as numpy arrays (page 0 zero)."""
+    """Random K/V pools of ``mode`` as numpy arrays (page 0 zero; int8
+    codes at the per-head scales)."""
     out = []
     for sc in (ks, vs):
         x = rng.standard_normal((L, P, KH, TP, D)).astype(np.float32)
@@ -63,17 +65,19 @@ def _pools(rng, mode, ks, vs):
 
 
 def _t(x):
-    """numpy → torch, byte-exact (e4m3 through a uint8 view)."""
+    """numpy → torch, byte-exact (e4m3 and bf16 through integer views)."""
     x = np.array(x)
     if x.dtype == ml_dtypes.float8_e4m3fn:
         return torch.from_numpy(x.view(np.uint8)).view(torch.float8_e4m3fn)
+    if x.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(x)
 
 
 def _bytes(x):
     """Pool bytes as uint8, from either package."""
     if isinstance(x, torch.Tensor):
-        return x.view(torch.uint8).numpy() if x.element_size() == 1 else x.numpy()
+        return x.contiguous().view(torch.uint8).numpy()
     return np.asarray(x).view(np.uint8)
 
 

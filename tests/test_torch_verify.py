@@ -176,7 +176,8 @@ def test_verify_wrapper_contract(monkeypatch):
     plain version, and counts only launches that happened."""
     q, kp, vp, pt, sl, layer, kn, vn, spg, sof = map(
         lambda a: _t(a) if isinstance(a, np.ndarray) else a, _verify_case())
-    for kw in (dict(mla_v_dim=64), dict(logit_softcap=30.0)):
+    # the MLA mode with several kv heads, and soft-capping in the MLA mode
+    for kw in (dict(mla_v_dim=64), dict(mla_v_dim=64, logit_softcap=30.0)):
         with pytest.raises(NotImplementedError):
             ops.paged_attention_verify(q, kp, vp, pt, sl, layer, kn, vn, spg, sof, **kw)
     with pytest.raises(NotImplementedError):  # float16 pools are not ported

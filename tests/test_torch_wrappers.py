@@ -26,8 +26,9 @@ def _decode_inputs():
 
 def test_unported_modes_raise():
     q, kp, vp, pt, sl = _decode_inputs()
-    with pytest.raises(NotImplementedError):
-        ops.paged_attention(q, kp, vp, pt, sl, 0, logit_softcap=30.0)
+    with pytest.raises(NotImplementedError):  # soft-capping in the MLA modes
+        ops.paged_attention_decode(q, kp[:, :, :1], None, pt, sl, 0, q[:, :1], None,
+                                   sl, sl, mla_v_dim=64, logit_softcap=30.0)
     with pytest.raises(NotImplementedError):  # float16 pools are not ported
         ops.paged_attention(q, kp.half(), vp.half(), pt, sl, 0)
     with pytest.raises(NotImplementedError):
