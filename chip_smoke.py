@@ -12,8 +12,9 @@ Phases (each prints its own lines; any failure exits nonzero):
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
 2. build: the five CUDA kernel sources are compiled from
-   ``kvcached_tpu_torch/csrc`` (one nvcc per source, in parallel), with
-   ptxas' register counts;
+   ``kvcached_tpu_torch/csrc`` into eight libraries (K1's, K3's and K4's
+   sources once more at head_dim 256; one nvcc per library, in parallel),
+   with ptxas' register counts and spill bytes;
 3. kernels: K1, K1r, K2, K3 and K4 against their plain PyTorch versions on
    the card at Llama-3-8B shapes (B=8, KH=8, QH=32, D=128, 64-token pages,
    contexts 512-2048 on shuffled pages, a windowed case, a K3 batch with
@@ -31,7 +32,12 @@ Phases (each prints its own lines; any failure exits nonzero):
    several times the cap: within the same tolerances, while the uncapped
    plain output must lie more than ten tolerances away (the control), and
    the bf16 rows and K4's byte rows timed beside the same kernel uncapped
-   and beside flex_attention with the cap as its score_mod;
+   and beside flex_attention with the cap as its score_mod; and K1, K1r,
+   K2, K3 and K4 at head_dim 256, Gemma-2-9B's widths (KH=8, QH=16,
+   sm_scale 1/16, cap 50, windows none, 4096 and 1024) on every pool type,
+   soft-capped, with the same control, the bf16 and byte rows timed beside
+   the same kernel at head_dim 128 on otherwise the same shapes, uncapped,
+   and beside flex_attention;
 4. engine: ``LLMEngine`` serves Llama-3-8B at full width (32 layers, bf16,
    weights drawn on the card from a seed) for 8 requests: a prefix-cache
    hit, a prompt longer than the largest prefill bucket, batched prefill,
@@ -109,7 +115,12 @@ Phases (each prints its own lines; any failure exits nonzero):
    to plain decode's, soft-capped K4 of each mode > 0; GREW/SHRANK/CORRECT
    on int8 through ``_g1``).  Part (a)'s logits include a verify step;
    (d) and (f)'s float32 part run after (a), on its 4-layer model.
-   ``torch.cuda.memory_allocated`` is logged before each load.
+   ``torch.cuda.memory_allocated`` is logged before each load;
+11. Gemma-2-9B (head_dim 256, query width 4096 against hidden 3584), after
+   phase 10's model is freed: phase 10's parts (a)-(f) through the same
+   function at its widths (42 layers, 10.2 B parameters, 780 bf16 and 1560
+   byte arena pages of 21 layers), log tag ``[gemma9]``; the head_dim 256
+   launches (K1, K2, K3 in (b) and (f), K4 in (e) and (f)) must be > 0.
 
 The line before last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.  ``--rehearse`` runs the control flow
@@ -155,6 +166,9 @@ CARD = dict(
     # phase 10: Gemma-2-27B, a 4200-token prompt (past the 4096 window), 712
     # arena pages of 23 layers (~8 GiB)
     hyb_model="gemma2_27b", hyb_long=4200, hyb_pages=712, hyb_max_len=8192,
+    # phase 11 (and phase 3's head_dim 256 rows): Gemma-2-9B, 780 arena
+    # pages of 21 layers at head_dim 256 (~8 GiB)
+    hyb9_model="gemma2_9b", hyb9_pages=780,
 )
 REHEARSE = dict(
     B=3, KH=2, QH=4, D=128, TP=32, L=2, contexts=(40, 70, 23), window=24,
@@ -163,6 +177,7 @@ REHEARSE = dict(
     mla_model="toy", MLA_H=4, MLA_D=256, MLA_R=128, MLA_SCALE=128 ** -0.5,
     G_QSCALE=40.0,
     hyb_model="toy", hyb_long=90, hyb_pages=96, hyb_max_len=256, hyb_window=32,
+    hyb9_model="toy256", hyb9_pages=96,
 )
 
 
@@ -394,7 +409,11 @@ def kernel_decode(torch, ops, F, case, dtype, window, timed, cap=None):
     """K1 (fused write + attend) and K1r (read-only) vs plain.  With ``cap``
     (the soft-capped mode) q is scaled so that the scores reach several
     times the cap, and each row also holds the uncapped plain output's
-    distance from the capped one (the control)."""
+    distance from the capped one (the control).  ``timed``: False (the
+    check alone), True (the row's times, bound and yardstick) or
+    ``"kernel"`` (the check and the kernels' device time alone, as
+    :func:`kernel_prefill_write`, :func:`kernel_prefill` and
+    :func:`kernel_verify` take it too)."""
     S = case.S
     B, KH, QH, D, L = S["B"], S["KH"], S["QH"], S["D"], S["L"]
     kp, vp = case.pools(dtype)
@@ -438,6 +457,10 @@ def kernel_decode(torch, ops, F, case, dtype, window, timed, cap=None):
     lay = lambda: next(cyc) % L  # noqa: E731
     k1 = lambda: ops.paged_attention_decode(  # noqa: E731
         q, kp, vp, *args, lay(), kn, vn, *slots, window=window, **kw)
+    k1r = lambda: ops.paged_attention(q, kp, vp, *args, lay(), window=window, **kw)  # noqa: E731
+    if timed == "kernel":  # the kernels' device time alone
+        res["K1"]["ms"], res["K1r"]["ms"] = time_ms(torch, k1, it), time_ms(torch, k1r, it)
+        return res
     res["K1"].update(
         ms=time_ms(torch, k1, it), host_ms=time_ms(torch, k1, it, hold=False),
         plain_ms=time_ms(torch, lambda: ops.paged_attention_decode_plain(
@@ -449,7 +472,6 @@ def kernel_decode(torch, ops, F, case, dtype, window, timed, cap=None):
     gathered = [(case.gather(kp, layer, case.page_tables, 0),
                  case.gather(vp, layer, case.page_tables, 1)) for layer in range(L)]
     q4 = q[:, :, None, :]
-    k1r = lambda: ops.paged_attention(q, kp, vp, *args, lay(), window=window, **kw)  # noqa: E731
     res["K1r"].update(
         ms=time_ms(torch, k1r, it), host_ms=time_ms(torch, k1r, it, hold=False),
         plain_ms=time_ms(torch, lambda: ops.paged_attention_decode_plain(
@@ -522,6 +544,9 @@ def kernel_prefill_write(torch, ops, case, dtype, timed):
     cyc = iter(range(10 ** 9))
     lay = lambda: next(cyc) % L  # noqa: E731
     k2 = lambda: ops.write_prefill_kv(kp, vp, kn, vn, pages, lay(), **kw)  # noqa: E731
+    if timed == "kernel":  # the kernel's device time alone
+        res["ms"] = time_ms(torch, k2, it)
+        return res
     res["ms"], res["host_ms"] = time_ms(torch, k2, it), time_ms(torch, k2, it, hold=False)
     res["plain_ms"] = time_ms(
         torch, lambda: ops.write_prefill_kv_plain(kp, vp, kn, vn, pages, lay(), **kw), it)
@@ -587,6 +612,9 @@ def kernel_prefill(torch, ops, F, case, dtype, window, timed, cap=None):
     lay = lambda: next(cyc) % L  # noqa: E731
     k3 = lambda: ops.paged_prefill_attention_batch(  # noqa: E731
         q, kp, vp, pt, q_starts, kv_lens, lay(), window=window, **kw)
+    if timed == "kernel":  # the kernel's device time alone
+        res["ms"] = time_ms(torch, k3, it)
+        return res
     res["ms"], res["host_ms"] = time_ms(torch, k3, it), time_ms(torch, k3, it, hold=False)
     res["plain_ms"] = time_ms(torch, lambda: ops.paged_prefill_attention_batch_plain(
         q, kp, vp, pt, q_starts, kv_lens, lay(), window=window, **kw), it)
@@ -668,6 +696,9 @@ def kernel_verify(torch, ops, F, case, dtype, window, timed, cap=None):
     lay = lambda: next(cyc) % L  # noqa: E731
     k4 = lambda: ops.paged_attention_verify(  # noqa: E731
         q, kp, vp, *args, lay(), kn, vn, *slots, window=window, **kw)
+    if timed == "kernel":  # the kernel's device time alone
+        res["ms"] = time_ms(torch, k4, it)
+        return res
     res["ms"], res["host_ms"] = time_ms(torch, k4, it), time_ms(torch, k4, it, hold=False)
     res["parts"] = kernel_parts(torch, k4, it)
     res["plain_ms"] = time_ms(torch, lambda: ops.paged_attention_verify_plain(
@@ -1011,6 +1042,58 @@ def phase_kernels(torch, ops, S, dev):
                     key = f"{name} softcap" + ("" if dtype == torch.bfloat16 else f" {tag}")
                     rows[key] = dict(r, tolerance=tol)
     del gcase
+    # head_dim 256 at Gemma-2-9B's widths (KH 8, QH 16, sm_scale 1/16, cap
+    # 50), every pool type, soft-capped as the model runs them, each with
+    # the uncapped control; windows none, the model's sliding window and a
+    # cutting one.  Timed: the bf16 and byte rows, each beside the same
+    # kernel at head_dim 128 on otherwise the same shapes (d128_ms), the
+    # same kernel uncapped and flex_attention
+    h9 = hybrid_config(S, S["hyb9_model"])
+    KH9, QH9, D9 = h9.num_kv_heads, h9.num_heads, h9.head_dim
+    shape9 = dict(S, KH=KH9, QH=QH9)
+    case9, case9_128 = KernelCase(torch, dev, dict(shape9, D=D9)), KernelCase(torch, dev, shape9)
+    cap9 = dict(sm_scale=h9.query_scale ** -0.5, softcap=h9.attn_softcap, q_scale=S["G_QSCALE"])
+    sliding9 = next(w for w in h9.group_windows if w)
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL),
+                       (torch.int8, BF16_TOL), (torch.float8_e4m3fn, BF16_TOL)):
+        tag = {torch.bfloat16: "bf16", torch.float32: "f32", torch.int8: "int8",
+               torch.float8_e4m3fn: "fp8"}[dtype]
+        sfx = "" if dtype == torch.bfloat16 else f" {tag}"  # rows "K1 d256", "K1 d256 int8"
+        for window in (None, sliding9, S["window"]):
+            t = dtype != torch.float32 and window is None
+            d = kernel_decode(torch, ops, F, case9, dtype, window, t, cap=cap9)
+            p = kernel_prefill(torch, ops, F, case9, dtype, window, t, cap=cap9)
+            v = kernel_verify(torch, ops, F, case9, dtype, window, t, cap=cap9)
+            if t:  # the same kernels at head_dim 128
+                d1 = kernel_decode(torch, ops, F, case9_128, dtype, window, "kernel", cap=cap9)
+                d["K1"]["d128_ms"], d["K1r"]["d128_ms"] = d1["K1"]["ms"], d1["K1r"]["ms"]
+                p["d128_ms"] = kernel_prefill(torch, ops, F, case9_128, dtype, window, "kernel",
+                                              cap=cap9)["ms"]
+                v["d128_ms"] = kernel_verify(torch, ops, F, case9_128, dtype, window, "kernel",
+                                             cap=cap9)["ms"]
+            for name, r in (("K1", d["K1"]), ("K1r", d["K1r"]), ("K3", p), ("K4", v)):
+                ok = r["max_abs_err"] <= tol and r.get("pools_bit_exact", True) \
+                    and r.get("kv_len0_row_zero", True)
+                control = r["uncapped_err"] > 10 * tol
+                log(f"[kernels] {name} d{D9} softcap {tag} window={window} (KH={KH9}, QH={QH9}, "
+                    f"D={D9}, cap {cap9['softcap']}): max_abs_err={r['max_abs_err']:.3e} "
+                    f"(tol {tol}) " + ("pools bit-exact " if "pools_bit_exact" in r else "")
+                    + f"uncapped plain output off by {r['uncapped_err']:.3e} (must exceed "
+                    f"{10 * tol:.0e}) " + ("ok" if ok and control else "FAILED"))
+                require(ok, f"{name} d{D9} {tag} window={window} disagrees: {r}")
+                require(control, f"{name} d{D9} {tag}: the cap does not change the output")
+                if t:
+                    rows[f"{name} d{D9}{sfx}"] = dict(r, tolerance=tol)
+        w = kernel_prefill_write(torch, ops, case9, dtype, dtype != torch.float32)
+        log(f"[kernels] K2 d{D9} {tag}: pools bit-exact={w['pools_bit_exact']}"
+            + (f", edge values as the reference={w['edge_values_ok']}"
+               if "edge_values_ok" in w else ""))
+        require(w["pools_bit_exact"] and w.get("edge_values_ok", True),
+                f"K2 d{D9} {tag} pool bytes differ")
+        if dtype != torch.float32:
+            w["d128_ms"] = kernel_prefill_write(torch, ops, case9_128, dtype, "kernel")["ms"]
+            rows[f"K2 d{D9}{sfx}"] = dict(w, tolerance=0.0)
+    del case9, case9_128
     from kvcached_tpu_torch.ops.paged_attention import mla_wave_blocks
 
     log("[kernels] MLA blocks a wave (occupancy API), by dtype and query rows a block: "
@@ -1027,6 +1110,8 @@ def phase_kernels(torch, ops, S, dev):
                if "parts" in r else "")
             + (f"; the same kernel uncapped on the same inputs {r['nocap_ms']:.4f} ms"
                if "nocap_ms" in r else "")
+            + (f"; the same kernel at head_dim 128 on otherwise the same shapes "
+               f"{r['d128_ms']:.4f} ms" if "d128_ms" in r else "")
             + (f"; flex_attention's output off the plain version's by "
                f"{r['library_err']:.3e}" if "library_err" in r else ""))
     return rows
@@ -1837,19 +1922,25 @@ def phase_mla(torch, ops, S, dev, rehearse):
 # ---------------------------------------------------------------------------
 
 
-def hybrid_config(S, **kw):
-    """Gemma-2-27B's widths (``HybridConfig.gemma2_27b``), or in a rehearsal
-    the toy with every Gemma2 knob on."""
+def hybrid_config(S, model=None, **kw):
+    """A hybrid model's widths: ``model`` (default ``S["hyb_model"]``) names
+    a ``HybridConfig`` classmethod (``gemma2_27b``, ``gemma2_9b``), or in a
+    rehearsal a toy with every Gemma2 knob on: ``toy`` at head_dim 128,
+    ``toy256`` at head_dim 256 with a query width (4 x 256) other than its
+    hidden size (384)."""
     from kvcached_tpu_torch.models.hybrid import HybridConfig
 
-    if S["hyb_model"] == "gemma2_27b":
-        return HybridConfig.gemma2_27b(**kw)
+    model = model or S["hyb_model"]
+    if not model.startswith("toy"):
+        return getattr(HybridConfig, model)(**kw)
     L = kw.pop("num_layers", 4)  # even layers slide, as Gemma2's: group 1 is the full one
+    widths = (dict(head_dim=256, hidden_size=384, query_scale=256.0) if model == "toy256"
+              else dict(query_scale=144.0))
     return HybridConfig.toy(
         num_layers=L, layer_windows=tuple(S["hyb_window"] if i % 2 == 0 else None
                                           for i in range(L)),
         act="gelu_tanh", norm_offset=True, embed_scale=True, post_norms=True,
-        attn_softcap=50.0, final_softcap=30.0, query_scale=144.0, **kw)
+        attn_softcap=50.0, final_softcap=30.0, **widths, **kw)
 
 
 def hybrid_logits(torch, cfg, params, S, dev, reference, plen, kv_dtype=None,
@@ -1940,9 +2031,12 @@ def spec_exact(torch, cfg, params, S, dev, rehearse, *, tag, num_pages=128):
     require(ms["dispatches"] > 0, f"{tag} the float32 spec run dispatched no verify")
 
 
-def phase_hybrid(torch, ops, S, dev, rehearse):
+def phase_hybrid(torch, ops, S, dev, rehearse, *, model=None, pages=None, tag="hybrid",
+                 phase="10"):
     """The hybrid family (two layer groups, sliding and full, on one shared
-    arena) at Gemma-2-27B's widths, after every earlier model is freed:
+    arena) at ``model``'s widths (``hybrid_config``: Gemma-2-27B in phase
+    10, Gemma-2-9B, head_dim 256, in phase 11) on ``pages`` bf16 arena
+    pages (default ``S["hyb_pages"]``), after every earlier model is freed:
     (a) a 4-layer float32 model of the same widths, last-position logits of
     a prompt longer than the 4096-token window (prefill, one decode step and
     one verify step) through the kernels against the plain path,
@@ -1962,8 +2056,10 @@ def phase_hybrid(torch, ops, S, dev, rehearse):
     (:func:`phase_byte_pools`: pages per budget, phase 4's mix, the 4-layer
     float32 logits gate and spec tokens, the elastic gate on int8 through
     ``_g1``).  (d) and (f)'s float32 part run right after (a), on its
-    model: beside the 46-layer bf16 model its 17 GiB would not fit.
-    Returns (launches, tok/s)."""
+    model: beside the 46-layer bf16 model its 17 GiB would not fit.  ``tag``
+    and ``phase`` name the log lines.  Returns (launches by row of the
+    kernel table, tok/s); the rows of a head_dim other than 128 carry it
+    (``"K1 d256"``), whose launches count under ``"+d256"``."""
     import math
 
     from kvcached_tpu_torch.engine import EngineConfig, LLMEngine
@@ -1973,8 +2069,9 @@ def phase_hybrid(torch, ops, S, dev, rehearse):
     mem = lambda: (f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated"  # noqa: E731
                    if dev.type == "cuda" else "on the CPU")
     # (a) the float32 gate at 4 layers (float32 at 46 layers would not fit)
-    c32 = hybrid_config(S, num_layers=4, dtype="float32")
-    log(f"[hybrid] (a) before the float32 model: {mem()}")
+    c32 = hybrid_config(S, model, num_layers=4, dtype="float32")
+    hd = "" if c32.head_dim == 128 else f"+d{c32.head_dim}"  # launch keys' suffix
+    log(f"[{tag}] (a) before the float32 model: {mem()}")
     p32 = init_hybrid_params(c32, seed=0, device=dev)
     plen = S["hyb_long"]
     kern = hybrid_logits(torch, c32, p32, S, dev, False, plen)
@@ -1984,7 +2081,7 @@ def phase_hybrid(torch, ops, S, dev, rehearse):
     c = c32.final_softcap
     raw = [c * torch.atanh((x / c).double()) for x in plain]  # the logits before the cap
     moved = [float(((r - x.double()).abs() > 1e-3).double().mean()) for r, x in zip(raw, plain)]
-    log(f"[hybrid] (a) {S['hyb_model']} widths at {c32.num_layers} layers, float32, a "
+    log(f"[{tag}] (a) {model or S['hyb_model']} widths at {c32.num_layers} layers, float32, a "
         f"{plen}-token prompt (window {c32.group_windows}): last-position logits, kernel path "
         f"vs plain path on {dev}, norm-relative {json.dumps(rels)} (tol {LOGITS_REL_TOL}); "
         f"final soft-cap {c}: share of logits it moved by more than 1e-3: prefill "
@@ -1995,24 +2092,26 @@ def phase_hybrid(torch, ops, S, dev, rehearse):
     # (d) and (f)'s float32 part run here, on the 4-layer model: beside the
     # 46-layer bf16 model (53 GiB) its 17 GiB would not fit
     TP, V, new = S["TP"], c32.vocab_size, S["max_new"]
-    spec_exact(torch, c32, p32, S, dev, rehearse, tag="[hybrid] (d)")
+    spec_exact(torch, c32, p32, S, dev, rehearse, tag=f"[{tag}] (d)")
+    mix_kernels = (f"K1+softcap{hd}", f"K2{hd}", f"K3+softcap{hd}")
     byte_counts, tok_s = phase_byte_pools(
-        torch, ops, c32, p32, S, dev, rehearse, tag="hybrid f",
-        mix_kernels=("K1+softcap", "K2", "K3+softcap"), spec_kernel="K4+softcap",
+        torch, ops, c32, p32, S, dev, rehearse, tag=f"{tag} f",
+        mix_kernels=mix_kernels, spec_kernel=f"K4+softcap{hd}",
         logits_tol=LOGITS_REL_TOL, f32_model=lambda: (c32, p32), parts="3", spec_ties=True)
     del p32
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
     # (b) the bf16 model at full depth
-    cfg = hybrid_config(S)
-    log(f"[hybrid] (b) before the bf16 model: {mem()}")
+    cfg = hybrid_config(S, model)
+    pages = pages or S["hyb_pages"]
+    log(f"[{tag}] (b) before the bf16 model: {mem()}")
     t0 = time.perf_counter()
     params = init_hybrid_params(cfg, seed=0, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    log(f"[hybrid] (b) {S['hyb_model']}: L={cfg.num_layers} E={cfg.hidden_size} "
+    log(f"[{tag}] (b) {model or S['hyb_model']}: L={cfg.num_layers} E={cfg.hidden_size} "
         f"H={cfg.num_heads} KH={cfg.num_kv_heads} D={cfg.head_dim} F={cfg.intermediate_size} "
         f"V={cfg.vocab_size} groups {cfg.group_windows} x {cfg.layers_per_group} layers, "
         f"softcaps {cfg.attn_softcap}/{cfg.final_softcap}, {cfg.dtype}: "
@@ -2020,9 +2119,9 @@ def phase_hybrid(torch, ops, S, dev, rehearse):
         f"{mem()}")
     eng = LLMEngine(cfg, EngineConfig(
         max_batch=8, max_model_len=S["hyb_max_len"], page_tokens=TP, decode_horizon=8,
-        prefill_buckets=S["buckets"], num_pages=S["hyb_pages"], kv_dtype=cfg.dtype,
+        prefill_buckets=S["buckets"], num_pages=pages, kv_dtype=cfg.dtype,
         prefill_batch=4), params=params, device=dev)
-    log(f"[hybrid] (b) arena: {eng.pool.capacity} pages x {eng.kv_cfg.page_bytes} B "
+    log(f"[{tag}] (b) arena: {eng.pool.capacity} pages x {eng.kv_cfg.page_bytes} B "
         f"({eng.pool.capacity * eng.kv_cfg.page_bytes / 2**30:.2f} GiB, "
         f"{cfg.layers_per_group} layers a page); {mem()}")
     rand, greedy, wave1, wave2 = request_mix(S, V, new)
@@ -2062,20 +2161,20 @@ def phase_hybrid(torch, ops, S, dev, rehearse):
     th = m["throughput"]
     tok_s.update(prefill=th["prefill_tokens"] / max(th["prefill_seconds"], 1e-9),
                  decode=th["decode_tokens"] / max(th["decode_seconds"], 1e-9))
-    log(f"[hybrid] (b) {len(outs)} requests ({len(wave2)} of wave 2 plus a {plen}-token "
+    log(f"[{tag}] (b) {len(outs)} requests ({len(wave2)} of wave 2 plus a {plen}-token "
         f"prompt), {sum(map(len, outs))} tokens; wave 2 in {wall:.2f} s: prefill "
         f"{tok_s['prefill']:.1f} tok/s ({th['prefill_tokens']} tokens), decode "
         f"{tok_s['decode']:.1f} tok/s ({th['decode_tokens']} tokens); prefix cache "
         f"{m['prefix_cache']}; prefill batch {m['prefill_batch']}; preemptions "
         f"{m['preemptions']}; groups {json.dumps(m['groups'])}")
-    log(f"[hybrid] (b) kernel launches on the main path {json.dumps(counts)}, by pool type "
+    log(f"[{tag}] (b) kernel launches on the main path {json.dumps(counts)}, by pool type "
         f"{json.dumps(by_dtype)}")
-    log(f"[hybrid] (b) the {plen}-token request: the sliding group (window "
+    log(f"[{tag}] (b) the {plen}-token request: the sliding group (window "
         f"{cfg.group_windows[sliding]}) freed up to {freed} pages of it, the full group kept "
         f"all of its {full_pages}: {kept}; one arena: group 0 could obtain {before} pages, "
         f"{drained} while group 1 held {len(taken or [])}, {after} after group 1 freed them")
     if prof:
-        log(f"[hybrid] (b) one decode dispatch ({prof['rows']} rows x {prof['steps']} steps) "
+        log(f"[{tag}] (b) one decode dispatch ({prof['rows']} rows x {prof['steps']} steps) "
             f"under torch.profiler: wall {prof['wall_ms']:.2f} ms, device busy "
             f"{prof['device_ms']:.2f} ms ({100 * prof['device_ms'] / prof['wall_ms']:.1f}%), "
             f"top kernels {json.dumps(prof['top'])}")
@@ -2087,22 +2186,26 @@ def phase_hybrid(torch, ops, S, dev, rehearse):
             "the sliding group frees pages while the full group keeps its own")
     require(taken is not None and drained < before // 4 and after > before // 2,
             "both groups take their pages from one arena")
-    # the soft-capped rows' launches; K2's row keeps phase 4's count
-    hyb = {"K1 softcap": by_dtype["K1"].get(f"{cfg.dtype}+softcap", 0),
-           "K3 softcap": by_dtype["K3"].get(f"{cfg.dtype}+softcap", 0)}
+    # the soft-capped rows' launches (at head_dim 128 K2's row keeps phase
+    # 4's count; at 256 K2 has a row of its own)
+    row = (lambda k: f"{k} softcap") if not hd else (lambda k: f"{k} d{c32.head_dim}")
+    hyb = {row("K1"): by_dtype["K1"].get(f"{cfg.dtype}+softcap{hd}", 0),
+           row("K3"): by_dtype["K3"].get(f"{cfg.dtype}+softcap{hd}", 0)}
+    if hd:
+        hyb[row("K2")] = by_dtype["K2"].get(f"{cfg.dtype}{hd}", 0)
     if not rehearse:
         for k, n in dict(hyb, K2=counts["K2"]).items():
-            require(n > 0, f"{k} was never launched on the hybrid path")
+            require(n > 0, f"{k} was never launched on the {tag} path")
     # (c) the elastic gate through the full group's segment, _g1
     require(full_g == 1, "Gemma2's full-attention layers are group 1")
-    phase_elastic(torch, cfg, params, S, dev, rehearse, tag="hybrid (c) elastic", group=1)
+    phase_elastic(torch, cfg, params, S, dev, rehearse, tag=f"{tag} (c) elastic", group=1)
 
     # (e) the bf16 model at full depth: phase 4's mix without and with spec
     res = {}
     for spec in (False, True):
         eng = LLMEngine(cfg, EngineConfig(
             max_batch=8, max_model_len=S["hyb_max_len"], page_tokens=TP, decode_horizon=8,
-            prefill_buckets=S["buckets"], num_pages=S["hyb_pages"], kv_dtype=cfg.dtype,
+            prefill_buckets=S["buckets"], num_pages=pages, kv_dtype=cfg.dtype,
             prefill_batch=4, spec_decode=spec), params=params, device=dev)
         rand, greedy, wave1, wave2 = request_mix(S, V, new)
         got, out1, out2, wall = serve_mix(ops, eng, wave1, wave2)  # spec: the main path
@@ -2116,12 +2219,12 @@ def phase_hybrid(torch, ops, S, dev, rehearse):
             outs=out1 + out2, spec=m.get("spec"), prof=prof, counts=by,
             decode=th["decode_tokens"] / max(th["decode_seconds"], 1e-9),
             step_ms=1e3 * th["decode_seconds"] / max(th["decode_steps"], 1))
-        log(f"[hybrid] (e) {cfg.dtype}, {cfg.num_layers} layers, spec_decode={spec}: "
+        log(f"[{tag}] (e) {cfg.dtype}, {cfg.num_layers} layers, spec_decode={spec}: "
             f"{len(r['outs'])} requests; wave 2 in {wall:.2f} s: decode {r['decode']:.1f} tok/s, "
             f"host wall {r['step_ms']:.2f} ms a {'verify iteration' if spec else 'decode step'}; "
             f"spec {json.dumps(r['spec'])}; kernel launches by pool type {json.dumps(by)}")
         if prof:
-            log(f"[hybrid] (e) one {'spec' if spec else 'decode'} dispatch ({prof['rows']} rows "
+            log(f"[{tag}] (e) one {'spec' if spec else 'decode'} dispatch ({prof['rows']} rows "
                 f"x {prof['steps']} {'verify iterations' if spec else 'steps'}) under "
                 f"torch.profiler: wall {prof['wall_ms']:.2f} ms, device busy "
                 f"{prof['device_ms']:.2f} ms ({100 * prof['device_ms'] / prof['wall_ms']:.1f}%), "
@@ -2129,29 +2232,32 @@ def phase_hybrid(torch, ops, S, dev, rehearse):
         require(all(len(o) == new for o in r["outs"]), "every hybrid request yields max_new tokens")
         require(all(0 <= t < V for o in r["outs"] for t in o), "hybrid tokens inside the vocabulary")
     agree = sum(a == b for a, b in zip(res[True]["outs"], res[False]["outs"]))
-    log(f"[hybrid] (e) decode {res[False]['decode']:.1f} tok/s plain, {res[True]['decode']:.1f} "
+    log(f"[{tag}] (e) decode {res[False]['decode']:.1f} tok/s plain, {res[True]['decode']:.1f} "
         f"tok/s spec; {res[True]['spec']['tokens_per_iteration']:.3f} tokens per row per verify "
         f"iteration; {agree}/{len(res[True]['outs'])} requests token-identical to plain decode "
         f"(bf16 is not exact)")
     require(res[True]["spec"]["dispatches"] > 0, "the hybrid spec run dispatched no verify")
-    hyb["K4 softcap"] = res[True]["counts"]["K4"].get(f"{cfg.dtype}+softcap", 0)
+    hyb[row("K4")] = res[True]["counts"]["K4"].get(f"{cfg.dtype}+softcap{hd}", 0)
     tok_s.update({"spec decode": res[True]["decode"], "mix plain decode": res[False]["decode"]})
 
     # (f) int8 and e4m3 arenas (their float32 part ran after (a))
-    _, byte_tok_s = phase_byte_pools(
-        torch, ops, cfg, params, S, dev, rehearse, tag="hybrid f",
-        mix_kernels=("K1+softcap", "K2", "K3+softcap"), spec_kernel="K4+softcap",
-        logits_tol=LOGITS_REL_TOL, bf16_pages=S["hyb_pages"], elastic_group=1, parts="124")
+    mix_counts, byte_tok_s = phase_byte_pools(
+        torch, ops, cfg, params, S, dev, rehearse, tag=f"{tag} f",
+        mix_kernels=mix_kernels, spec_kernel=f"K4+softcap{hd}",
+        logits_tol=LOGITS_REL_TOL, bf16_pages=pages, elastic_group=1, parts="124")
     for mt in ("int8", "fp8"):
-        hyb[f"K4 softcap {mt}"] = byte_counts[f"K4+softcap {mt}"]
+        hyb[f"{row('K4')} {mt}"] = byte_counts[f"K4+softcap{hd} {mt}"]
+        if hd:  # at 256 the byte modes of K1, K2 and K3 have rows of their own
+            for k, key in zip(("K1", "K2", "K3"), mix_kernels):
+                hyb[f"{row(k)} {mt}"] = mix_counts[f"{key} {mt}"]
     tok_s.update(byte_tok_s)
     if not rehearse:
         for k, n in hyb.items():
-            require(n > 0, f"{k} was never launched on the hybrid path")
+            require(n > 0, f"{k} was never launched on the {tag} path")
     del params
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    log(f"[hybrid] phase 10 in {time.perf_counter() - t_phase:.1f} s ({math.ceil(plen / TP)} "
+    log(f"[{tag}] phase {phase} in {time.perf_counter() - t_phase:.1f} s ({math.ceil(plen / TP)} "
         f"pages of {TP} tokens for the long prompt)")
     return hyb, tok_s
 
@@ -2280,11 +2386,17 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
     hyb_counts, hyb_tok_s = phase_hybrid(torch, ops, S, dev, rehearse)
     counts.update(hyb_counts)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    hyb9_counts, hyb9_tok_s = phase_hybrid(torch, ops, S, dev, rehearse, model=S["hyb9_model"],
+                                           pages=S["hyb9_pages"], tag="gemma9", phase="11")
+    counts.update(hyb9_counts)
     real = phase_real_weights(torch, dev, rehearse)
-    log(f"[done] phases 3-10 in {time.perf_counter() - t0:.1f} s; engine tok/s "
+    log(f"[done] phases 3-11 in {time.perf_counter() - t0:.1f} s; engine tok/s "
         f"{json.dumps(tok_s)}; spec decode tok/s {json.dumps(spec_tok_s)}; byte pools "
         f"tok/s {json.dumps(byte_tok_s)}; MLA tok/s {json.dumps(mla_tok_s)}; hybrid tok/s "
-        f"{json.dumps(hyb_tok_s)}; winadd exact {real['winadd']}; card {smi}")
+        f"{json.dumps(hyb_tok_s)}; Gemma-2-9B tok/s {json.dumps(hyb9_tok_s)}; winadd exact "
+        f"{real['winadd']}; card {smi}")
     if rehearse:
         log("[done] rehearsal only: no result")
         return 3
@@ -2327,6 +2439,16 @@ def main(argv) -> int:
         meta[f"K4 softcap {tag}"] = (f"{fn}, soft-capped (logit_softcap), {mode} pool", src,
                                      replaces)
     counts.setdefault("K1r softcap", 0)
+    # head_dim 256 (soft-capped, Gemma-2-9B's widths) on every pool type but
+    # float32: launches on phase 11's paths (K1r is on no engine path)
+    for k in ("K1", "K1r", "K2", "K3", "K4"):
+        fn, src, replaces = meta[k]
+        capped = "" if k == "K2" else ", soft-capped (logit_softcap)"
+        meta[f"{k} d256"] = (f"{fn}{capped}, head_dim 256", src, replaces)
+        counts.setdefault(f"{k} d256", 0)
+        for tag, mode in modes.items():
+            meta[f"{k} d256 {tag}"] = (f"{fn}{capped}, head_dim 256, {mode} pool", src, replaces)
+            counts.setdefault(f"{k} d256 {tag}", 0)
     kernels = []
     for k, (fn, src, replaces) in meta.items():
         r = rows[k]
@@ -2339,6 +2461,7 @@ def main(argv) -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "host_ms": r["host_ms"], "tolerance": r["tolerance"],
             "dtype": modes.get(tag, "bfloat16"),
+            **({"d128_ms": r["d128_ms"]} if "d128_ms" in r else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -226,17 +226,67 @@ __device__ __forceinline__ float soft_cap(float s, float cap) {
 }
 
 // ---- the tile step of the flash-attention kernels (K3, K4) ---------------
+//
+// The head dim D is a template parameter (128 or 256; csrc/*.cu build each
+// width into a library of its own, KVC_HEAD_DIM), so each width's
+// instances are compiled for it and the 128 instances keep their code.
 
-constexpr int kHeadDim = 128;  // head_dim of every kernel
-constexpr int kThreads = 128;  // 4 warps; one thread per head_dim lane (f32)
+constexpr int kThreads = 128;  // a tensor-core block: 4 warps of 16 query rows
 constexpr int kMmaKeys = 64;   // keys per bf16 tile
 constexpr int kF32Keys = 32;   // keys per float32 tile
 constexpr int kF32Rows = 64;   // query rows per float32 block
 
+// S = Q K^T for a warp's 16 query rows over a 64-key tile, Q held as this
+// lane's A fragments qa in registers (head_dim 128: 32 registers).
+template <int D, int LD>
+__device__ __forceinline__ void mma_scores(const uint32_t (&qa)[D / 16][4],
+                                           const __nv_bfloat16 (&k_s)[kMmaKeys][LD],
+                                           float (&s)[kMmaKeys / 8][4]) {
+  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int nt = 0; nt < kMmaKeys / 8; ++nt) {
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const __nv_bfloat16* kr = &k_s[nt * 8 + gq][ks * 16 + 2 * tq];
+      mma_bf16(s[nt], qa[ks], *reinterpret_cast<const uint32_t*>(kr),
+               *reinterpret_cast<const uint32_t*>(kr + 8));
+    }
+  }
+}
+
+// The same with the warp's 16 query rows read from shared memory, q_w
+// [16][LD] bf16, one k-step's A fragment at a time (head_dim 256: held in
+// registers, Q's fragments (64) and the output's (128) beside the scores'
+// (32) would pass the 255 registers a thread can have, and spill).
+template <int D, int LD>
+__device__ __forceinline__ void mma_scores(const __nv_bfloat16 (&q_w)[16][LD],
+                                           const __nv_bfloat16 (&k_s)[kMmaKeys][LD],
+                                           float (&s)[kMmaKeys / 8][4]) {
+  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int nt = 0; nt < kMmaKeys / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const int c = ks * 16 + 2 * tq;
+    const uint32_t qa[4] = {*reinterpret_cast<const uint32_t*>(&q_w[gq][c]),
+                            *reinterpret_cast<const uint32_t*>(&q_w[gq + 8][c]),
+                            *reinterpret_cast<const uint32_t*>(&q_w[gq][c + 8]),
+                            *reinterpret_cast<const uint32_t*>(&q_w[gq + 8][c + 8])};
+#pragma unroll
+    for (int nt = 0; nt < kMmaKeys / 8; ++nt) {
+      const __nv_bfloat16* kr = &k_s[nt * 8 + gq][c];
+      mma_bf16(s[nt], qa, *reinterpret_cast<const uint32_t*>(kr),
+               *reinterpret_cast<const uint32_t*>(kr + 8));
+    }
+  }
+}
+
 // One tile of keys t0 + [0, nk) for the 16 query rows of a warp on the
 // tensor cores (mma.sync m16n8k16, FlashAttention-2 register layout).  This
-// lane holds query rows gq and gq + 8 of the warp (gq = lane / 4): their A
-// fragments qa, their output fragments o, their running max m and their
+// lane holds query rows gq and gq + 8 of the warp (gq = lane / 4): their
+// query operand q (:func:`mma_scores`: A fragments, or the warp's rows in
+// shared memory), their output fragments o, their running max m and their
 // running sum l over this lane's columns.  The tile is staged in shared
 // memory, k_s / v_s (rows past nk zero); taking them as arrays of a known
 // row length, not as pointers, keeps K3 at its own code's speed (a pointer
@@ -246,26 +296,17 @@ constexpr int kF32Rows = 64;   // query rows per float32 block
 // an instance that caps (kCap), softcap * tanh(score / softcap) before the
 // mask (Gemma2's logit soft-capping); the softmax weights are rounded to
 // bf16 before they multiply V.
-template <bool kCap, int LD>
+template <bool kCap, int D, int LD, typename QOp>
 __device__ __forceinline__ void mma_attend_tile(
-    const uint32_t (&qa)[kHeadDim / 16][4], const bool (&live)[2],
+    const QOp& q, const bool (&live)[2],
     const int (&qpos)[2], const __nv_bfloat16 (&k_s)[kMmaKeys][LD],
     const __nv_bfloat16 (&v_s)[kMmaKeys][LD], int t0, int nk, int window,
-    float sm_scale, float k_scale, float softcap, float (&o)[kHeadDim / 8][4],
+    float sm_scale, float k_scale, float softcap, float (&o)[D / 8][4],
     float (&m)[2], float (&l)[2]) {
   const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
   // S = Q K^T: 8 column tiles of 8 keys
   float s[kMmaKeys / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < kMmaKeys / 8; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kHeadDim / 16; ++ks) {
-      const __nv_bfloat16* kr = &k_s[nt * 8 + gq][ks * 16 + 2 * tq];
-      mma_bf16(s[nt], qa[ks], *reinterpret_cast<const uint32_t*>(kr),
-               *reinterpret_cast<const uint32_t*>(kr + 8));
-    }
-  }
+  mma_scores<D, LD>(q, k_s, s);
   // scale, mask, online softmax (rows gq and gq+8 of this warp)
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -303,7 +344,7 @@ __device__ __forceinline__ void mma_attend_tile(
 #pragma unroll
   for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + psum[i];
 #pragma unroll
-  for (int j = 0; j < kHeadDim / 8; ++j) {
+  for (int j = 0; j < D / 8; ++j) {
     o[j][0] *= alpha[0];
     o[j][1] *= alpha[0];
     o[j][2] *= alpha[1];
@@ -319,7 +360,7 @@ __device__ __forceinline__ void mma_attend_tile(
         pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
     const int k0 = 16 * j + 2 * tq;
 #pragma unroll
-    for (int dn = 0; dn < kHeadDim / 8; ++dn) {
+    for (int dn = 0; dn < D / 8; ++dn) {
       const int col = dn * 8 + gq;
       mma_bf16(o[dn], pa, pack_halves(&v_s[k0][col], &v_s[k0 + 1][col]),
                pack_halves(&v_s[k0 + 8][col], &v_s[k0 + 9][col]));
@@ -327,30 +368,31 @@ __device__ __forceinline__ void mma_attend_tile(
   }
 }
 
-// shared memory of a float32 block: q_s, k_s, v_s, p_s, m_s, l_s, a_s as
-// f32_attend_tile lays them out
+// shared memory of a float32 block of head dim D: q_s, k_s, v_s, p_s, m_s,
+// l_s, a_s as f32_attend_tile lays them out (65 KB at 128, 137 KB at 256)
+template <int D>
 constexpr size_t kF32SmemBytes =
-    sizeof(float) * ((size_t)kF32Rows * kHeadDim + (size_t)kF32Keys * (kHeadDim + 1) +
-                     (size_t)kF32Keys * kHeadDim + (size_t)kF32Rows * kF32Keys + 3 * kF32Rows);
+    sizeof(float) * ((size_t)kF32Rows * D + (size_t)kF32Keys * (D + 1) +
+                     (size_t)kF32Keys * D + (size_t)kF32Rows * kF32Keys + 3 * kF32Rows);
 
 // One tile of keys t0 + [0, nk) for `rows` query rows on the CUDA cores in
-// float32, one thread per head_dim lane d = threadIdx.x.  Shared memory
-// holds q_s [rows][kHeadDim], k_s [kF32Keys][kHeadDim + 1] and v_s
-// [kF32Keys][kHeadDim] (staged by the caller, then a barrier), the scores
+// float32, a block of D threads, one thread per head_dim lane d =
+// threadIdx.x.  Shared memory holds q_s [rows][D], k_s [kF32Keys][D + 1]
+// and v_s [kF32Keys][D] (staged by the caller, then a barrier), the scores
 // p_s [kF32Rows][kF32Keys] and the softmax state m_s / l_s / a_s
 // [kF32Rows]; acc is this lane's unnormalised output per query row.  Query
 // row r sits at qpos0 + r / G and sees a key <= it, and > it - window with
 // a window; kCap and softcap as in mma_attend_tile.  The caller puts a
 // barrier before restaging k_s / v_s.
-template <bool kCap>
+template <bool kCap, int D>
 __device__ __forceinline__ void f32_attend_tile(
     const float* q_s, const float* k_s, const float* v_s, float* p_s,
     float* m_s, float* l_s, float* a_s, float (&acc)[kF32Rows], int rows,
     int G, int qpos0, int t0, int nk, int window, float sm_scale,
     float softcap) {
-  constexpr int D = kHeadDim, TILE = kF32Keys;
+  constexpr int TILE = kF32Keys;
   const int d = threadIdx.x;
-  for (int i = d; i < rows * TILE; i += kThreads) {
+  for (int i = d; i < rows * TILE; i += D) {
     const int r = i / TILE, t = i % TILE;
     float s = -INFINITY;
     if (t < nk) {
@@ -376,7 +418,7 @@ __device__ __forceinline__ void f32_attend_tile(
     m_s[d] = m_new;
   }
   __syncthreads();
-  for (int i = d; i < rows * TILE; i += kThreads) {
+  for (int i = d; i < rows * TILE; i += D) {
     const float s = p_s[i];
     p_s[i] = s == -INFINITY ? 0.f : expf(s - m_s[i / TILE]);
   }

@@ -26,9 +26,9 @@
 // far below the ~295 FLOP/byte ridge.  Design (split-K flash decoding):
 //   - pass 1, grid (row, kv head, split): each block takes SPLIT tokens of
 //     one row and one kv head; each of its 4 warps walks its share in
-//     groups of U tokens, a lane holding 4 of the 128 head_dim lanes, so a
-//     token's K or V row is one coalesced warp load and U rows are in
-//     flight per warp.  Dots are reduced with warp shuffles, the softmax is
+//     groups of U tokens, a lane holding EPL = D / 32 of the D head_dim
+//     lanes, so a token's K or V row is one coalesced warp load and U rows
+//     are in flight per warp.  Dots are reduced with warp shuffles, the softmax is
 //     online per warp, and the warps merge in shared memory into one
 //     (max, sum, acc) partial per split;
 //   - pass 2, grid (row, kv head): merges the splits' partials.
@@ -39,43 +39,71 @@
 // registers instead of reading the slot back, so no block waits on
 // another's store.  A row's pages are its own (prefix-cache pages are full
 // pages, never written; padded rows aim at page 0).
+// head_dim: 128, or 256 when built with -DKVC_HEAD_DIM=256 (the
+// paged_decode_d256 library; the wrapper picks the library by the pools'
+// width).  At 256 a lane holds 8 lanes of each row (one 16-byte bf16
+// vector, two float32 ones, one 8-byte word of a byte pool) and a warp
+// keeps U = 4 tokens in flight, the bytes in flight of U = 8 at 128, so
+// that K and V stay at 64 registers a lane; the GQA group's q and
+// accumulators take 16 registers a head (64 at G <= 4, Gemma2's group of
+// 2; a group past 8 spills).  The warps merge through 32 KB of shared
+// memory, 8 group heads at a time.
 #include "kv_common.cuh"
 
 namespace {
 
-constexpr int D = 128;            // head_dim
+#ifndef KVC_HEAD_DIM
+#define KVC_HEAD_DIM 128
+#endif
+constexpr int D = KVC_HEAD_DIM;   // head_dim of this library
+static_assert(D == 128 || D == 256, "head_dim 128 or 256");
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int EPL = D / 32;       // head_dim lanes per thread
-constexpr int U = 8;              // tokens in flight per warp step
+constexpr int U = D == 128 ? 8 : 4;  // tokens in flight per warp step
 constexpr int SPLIT = 256;        // tokens per block (ops/paged_attention.py)
+// group heads whose warp partials shared memory holds at once (32 KB)
+constexpr int MERGE_HEADS = 32768 / (WARPS * D * (int)sizeof(float));
 
+// This lane's EPL values at p, widened to float: one 8- (head_dim 128) or
+// 16-byte (256) bf16 vector, one or two 16-byte float32 vectors, one 4- or
+// 8-byte word of a byte pool.
 template <typename T>
-__device__ __forceinline__ void load4(const T* p, float (&x)[EPL]);
-template <>
-__device__ __forceinline__ void load4<int8_t>(const int8_t* p, float (&x)[EPL]) {
-  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void load_lanes(const T* p, float (&x)[EPL]) {
+  if constexpr (sizeof(T) == 1) {  // int8, e4m3
+    uint32_t w[EPL / 4];
+    if constexpr (EPL == 4) {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    } else {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      w[0] = v.x;
+      w[1] = v.y;
+    }
 #pragma unroll
-  for (int i = 0; i < EPL; ++i) x[i] = kvc::byte_f<int8_t>(w, i);
-}
-template <>
-__device__ __forceinline__ void load4<kvc::e4m3>(const kvc::e4m3* p, float (&x)[EPL]) {
-  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+    for (int i = 0; i < EPL; ++i) x[i] = kvc::byte_f<T>(w[i / 4], i % 4);
+  } else if constexpr (sizeof(T) == 4) {  // float32
 #pragma unroll
-  for (int i = 0; i < EPL; ++i) x[i] = kvc::byte_f<kvc::e4m3>(w, i);
-}
-template <>
-__device__ __forceinline__ void load4<float>(const float* p, float (&x)[EPL]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-}
-template <>
-__device__ __forceinline__ void load4<__nv_bfloat16>(const __nv_bfloat16* p,
-                                                     float (&x)[EPL]) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
+    for (int j = 0; j < EPL / 4; ++j) {
+      const float4 v = reinterpret_cast<const float4*>(p)[j];
+      x[4 * j] = v.x; x[4 * j + 1] = v.y; x[4 * j + 2] = v.z; x[4 * j + 3] = v.w;
+    }
+  } else {  // bf16
+    uint32_t w[EPL / 2];
+    if constexpr (EPL == 4) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      w[0] = v.x;
+      w[1] = v.y;
+    } else {
+      const uint4 v = *reinterpret_cast<const uint4*>(p);
+      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+    }
+#pragma unroll
+    for (int j = 0; j < EPL / 2; ++j) {
+      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+      x[2 * j] = a.x;
+      x[2 * j + 1] = a.y;
+    }
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -108,8 +136,9 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
   using Q = typename Types<T>::Q;
   using New = typename Types<T>::New;
   using Op = typename Types<T>::Op;
+  constexpr int GM = GT < MERGE_HEADS ? GT : MERGE_HEADS;  // heads a merge round
   __shared__ float m_w[WARPS][GT], l_w[WARPS][GT];
-  __shared__ float acc_w[WARPS][GT][D];
+  __shared__ float acc_w[WARPS][GM][D];
 
   const int b = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
   const int S = gridDim.z;
@@ -127,8 +156,8 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     slot_page = slot_pages[b];
     slot_off = slot_offsets[b];
     const size_t src = ((size_t)b * KH + h) * D + e0;
-    load4<New>(k_new + src, kn);
-    load4<New>(v_new + src, vn);
+    load_lanes<New>(k_new + src, kn);
+    load_lanes<New>(v_new + src, vn);
     T ks[EPL], vs[EPL];
     const float vsc = head_scale(v_scales, layer, KH, h);
 #pragma unroll
@@ -152,7 +181,7 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
   float qv[GT][EPL];
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
-    if (g < G) load4<Q>(q + (((size_t)b * KH + h) * G + g) * D + e0, qv[g]);
+    if (g < G) load_lanes<Q>(q + (((size_t)b * KH + h) * G + g) * D + e0, qv[g]);
   }
   float m[GT], l[GT], acc[GT][EPL];
 #pragma unroll
@@ -182,8 +211,8 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
         for (int i = 0; i < EPL; ++i) { kx[u][i] = kn[i]; vx[u][i] = vn[i]; }
       } else {
         const size_t src = base + (size_t)page * page_stride + (size_t)off * D + e0;
-        load4<T>(k_pool + src, kx[u]);
-        load4<T>(v_pool + src, vx[u]);
+        load_lanes<T>(k_pool + src, kx[u]);
+        load_lanes<T>(v_pool + src, vx[u]);
       }
     }
 #pragma unroll
@@ -224,28 +253,65 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
 #pragma unroll
     for (int g = 0; g < GT; ++g) { m_w[warp][g] = m[g]; l_w[warp][g] = l[g]; }
   }
-#pragma unroll
-  for (int g = 0; g < GT; ++g) {
-#pragma unroll
-    for (int i = 0; i < EPL; ++i) acc_w[warp][g][e0 + i] = acc[g][i];
-  }
-  __syncthreads();
   const size_t prow = (((size_t)b * KH + h) * S + split) * GT;
-  for (int g = 0; g < G; ++g) {
-    float M = -INFINITY;
+  // head_dim 128 keeps the merge it had (one lane a thread, one round): the
+  // rounds below, written for both widths, made the uncapped 128 instances
+  // 2-3% slower on the H100
+  if constexpr (D == THREADS) {
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, m_w[w][g]);
-    float Lsum = 0.f, A = 0.f;
+    for (int g = 0; g < GT; ++g) {
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float wt = m_w[w][g] == -INFINITY ? 0.f : expf(m_w[w][g] - M);
-      Lsum += l_w[w][g] * wt;
-      A += acc_w[w][g][tid] * wt;
+      for (int i = 0; i < EPL; ++i) acc_w[warp][g][e0 + i] = acc[g][i];
     }
-    part_acc[(prow + g) * D + tid] = A;
-    if (tid == 0) {
-      part_m[prow + g] = M;
-      part_l[prow + g] = Lsum;
+    __syncthreads();
+    for (int g = 0; g < G; ++g) {
+      float M = -INFINITY;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) M = fmaxf(M, m_w[w][g]);
+      float Lsum = 0.f, A = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        const float wt = m_w[w][g] == -INFINITY ? 0.f : expf(m_w[w][g] - M);
+        Lsum += l_w[w][g] * wt;
+        A += acc_w[w][g][tid] * wt;
+      }
+      part_acc[(prow + g) * D + tid] = A;
+      if (tid == 0) {
+        part_m[prow + g] = M;
+        part_l[prow + g] = Lsum;
+      }
+    }
+  } else {  // head_dim 256: D / THREADS lanes a thread, GM group heads a round
+#pragma unroll
+    for (int g0 = 0; g0 < GT; g0 += GM) {
+      if (g0 > 0) __syncthreads();  // the previous round's partials are read
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+#pragma unroll
+        for (int i = 0; i < EPL; ++i) acc_w[warp][g][e0 + i] = acc[g0 + g][i];
+      }
+      __syncthreads();
+      for (int g = g0; g < min(G, g0 + GM); ++g) {
+        float M = -INFINITY, wt[WARPS];
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) M = fmaxf(M, m_w[w][g]);
+        float Lsum = 0.f;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) {
+          wt[w] = m_w[w][g] == -INFINITY ? 0.f : expf(m_w[w][g] - M);
+          Lsum += l_w[w][g] * wt[w];
+        }
+        for (int d = tid; d < D; d += THREADS) {
+          float A = 0.f;
+#pragma unroll
+          for (int w = 0; w < WARPS; ++w) A += acc_w[w][g - g0][d] * wt[w];
+          part_acc[(prow + g) * D + d] = A;
+        }
+        if (tid == 0) {
+          part_m[prow + g] = M;
+          part_l[prow + g] = Lsum;
+        }
+      }
     }
   }
 }
@@ -326,20 +392,21 @@ int dispatch(int G, const void* q, void* k_pool, void* v_pool,
 
 }  // namespace
 
-// scratch: B * KH * S * GT * (D + 2) floats, S = ceil(maxp * TP / 256),
+// head_dim: the pools' width, which must be this library's (D).  scratch:
+// B * KH * S * GT * (D + 2) floats, S = ceil(maxp * TP / 256),
 // GT = 4, 8 or 16 (the smallest >= G); the wrapper allocates it.  q, the
 // tokens and out are in the pool's type for float32 and bf16 pools; for
 // int8 and e4m3 pools q is bf16, the tokens and out float32.  k_scales /
 // v_scales: an int8 pool's [L, KH] float32 scales (null: 1); softcap: the
 // logit soft-cap (0: off).
 extern "C" int kvc_paged_decode(
-    int dtype, const void* q, void* k_pool, void* v_pool,
+    int dtype, int head_dim, const void* q, void* k_pool, void* v_pool,
     const void* page_tables, const void* seq_lens, const void* k_new,
     const void* v_new, const void* slot_pages, const void* slot_offsets,
     const float* k_scales, const float* v_scales, void* out, void* scratch,
     int B, int layer, int num_pages, int KH, int G, int TP, int maxp,
     int window, float sm_scale, float softcap, int write_kv, void* stream) {
-  if (G < 1 || G > 16) return (int)cudaErrorInvalidValue;
+  if (head_dim != D || G < 1 || G > 16) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
 #define KVC_DTYPE(T)                                                          \

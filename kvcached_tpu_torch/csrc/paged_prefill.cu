@@ -39,6 +39,14 @@
 //   - float32 pools: one thread per head_dim lane on the CUDA cores, 32-key
 //     tiles, float32 throughout (the tensor cores have no full-float32
 //     path).
+// head_dim: 128, or 256 when built with -DKVC_HEAD_DIM=256 (the
+// paged_prefill_d256 library; the wrapper picks the library by the pools'
+// width).  At 256 a warp's Q fragments (64 registers) and output
+// fragments (128) would not fit beside its scores in 255 registers, so the
+// tensor-core kernel stages the block's 64 query rows in shared memory and
+// reads one k-step's fragment at a time (kv_common.cuh mma_scores); with
+// the K and V tiles that is 99 KB of dynamic shared memory a block.  The
+// float32 kernel gives each of the 256 lanes a thread (137 KB).
 // Not yet done: wgmma, a TMA ring, and overlap of the next tile's loads
 // with the current tile's math.
 #include "kv_common.cuh"
@@ -47,13 +55,18 @@ namespace {
 
 using namespace kvc;
 
-constexpr int D = kHeadDim;     // one thread per lane
-constexpr int THREADS = kThreads;
+#ifndef KVC_HEAD_DIM
+#define KVC_HEAD_DIM 128
+#endif
+constexpr int D = KVC_HEAD_DIM;  // head_dim of this library
+static_assert(D == 128 || D == 256, "head_dim 128 or 256");
+constexpr int THREADS = kThreads;  // tensor-core blocks: 4 warps
+constexpr int F32_THREADS = D;     // float32 blocks: one thread per lane
 constexpr int ROWS = kF32Rows;  // query rows (token x group head) per block
 constexpr int TILE = kF32Keys;  // keys staged per step
 
 template <bool kCap>
-__global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
+__global__ void __launch_bounds__(F32_THREADS) paged_prefill_kernel(
     const float* __restrict__ q,          // [N, Tq, KH*G, D]
     const float* __restrict__ k_pool,     // [L, P, KH, TP, D]
     const float* __restrict__ v_pool,
@@ -119,8 +132,8 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
     __syncthreads();
     // keys below kv_hi <= kv_len: the tile step's causal and window mask
     // is the whole mask
-    f32_attend_tile<kCap>(q_s, k_s, v_s, p_s, m_s, l_s, a_s, acc, rows, G, qpos_lo,
-                          t0, nk, window, sm_scale, softcap);
+    f32_attend_tile<kCap, D>(q_s, k_s, v_s, p_s, m_s, l_s, a_s, acc, rows, G, qpos_lo,
+                             t0, nk, window, sm_scale, softcap);
     __syncthreads();
   }
 #pragma unroll
@@ -138,6 +151,9 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
 
 constexpr int MMA_KT = kMmaKeys;    // keys per tile
 constexpr int MMA_LD = D + 8;       // padded smem row (bf16 elements)
+// head_dim 256: the K and V tiles and the block's query rows, in dynamic
+// shared memory
+constexpr size_t kMmaSmem256 = sizeof(__nv_bfloat16) * (2 * MMA_KT + ROWS) * MMA_LD;
 
 // 8 consecutive pool values at p as 8 bf16 (one 16-byte vector)
 template <typename P>
@@ -165,8 +181,16 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_mma_kernel(
     typename Types<P>::Out* __restrict__ out,  // [N, Tq, KH*G, D]
     int layer, int num_pages, int KH, int G, int TP, int maxp, int Tq,
     int window, float sm_scale, float softcap) {
+#if KVC_HEAD_DIM == 128
   __shared__ __align__(16) __nv_bfloat16 k_s[MMA_KT][MMA_LD];
   __shared__ __align__(16) __nv_bfloat16 v_s[MMA_KT][MMA_LD];
+#else
+  extern __shared__ uint4 smem_mma[];  // kMmaSmem256 bytes: K, V, Q
+  __nv_bfloat16* const tiles = reinterpret_cast<__nv_bfloat16*>(smem_mma);
+  auto& k_s = *reinterpret_cast<__nv_bfloat16(*)[MMA_KT][MMA_LD]>(tiles);
+  auto& v_s = *reinterpret_cast<__nv_bfloat16(*)[MMA_KT][MMA_LD]>(tiles + MMA_KT * MMA_LD);
+  auto& q_s = *reinterpret_cast<__nv_bfloat16(*)[ROWS][MMA_LD]>(tiles + 2 * MMA_KT * MMA_LD);
+#endif
 
   const int n = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, gq = lane / 4, tq = lane % 4;
@@ -181,13 +205,16 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_mma_kernel(
   // this lane's two query rows: r[0] = 16*warp + gq, r[1] = r[0] + 8
   int qpos[2];
   bool live[2];
+#if KVC_HEAD_DIM == 128
   uint32_t qa[D / 16][4];
+#endif
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = 16 * warp + gq + 8 * i;
     live[i] = r < rows;
     qpos[i] = q_start + t_begin + r / G;
   }
+#if KVC_HEAD_DIM == 128
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {
 #pragma unroll
@@ -204,6 +231,19 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_mma_kernel(
       qa[ks][2 + i] = hi;   // a2 / a3: columns 2tq+8, 2tq+9
     }
   }
+#else
+  // the block's query rows into shared memory (zeros past `rows`); the
+  // first tile's barrier publishes them
+  for (int idx = tid; idx < ROWS * (D / 8); idx += THREADS) {
+    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r < rows)
+      v = *reinterpret_cast<const uint4*>(
+          q + (((size_t)n * Tq + t_begin + r / G) * QH + h * G + r % G) * D + c);
+    *reinterpret_cast<uint4*>(&q_s[r][c]) = v;
+  }
+  const auto& qa = *reinterpret_cast<const __nv_bfloat16(*)[16][MMA_LD]>(q_s[16 * warp]);
+#endif
 
   float o[D / 8][4];
 #pragma unroll
@@ -239,8 +279,8 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_mma_kernel(
     __syncthreads();
     // keys below kv_hi <= kv_len: the tile step's causal and window mask
     // is the whole mask
-    mma_attend_tile<kCap>(qa, live, qpos, k_s, v_s, t0, nk, window, sm_scale, ksc,
-                          softcap, o, m, l);
+    mma_attend_tile<kCap, D>(qa, live, qpos, k_s, v_s, t0, nk, window, sm_scale, ksc,
+                             softcap, o, m, l);
   }
 
 #pragma unroll
@@ -279,20 +319,20 @@ int launch_f32(const void* q, const void* k_pool, const void* v_pool,
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
         paged_prefill_kernel<kCap>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kF32SmemBytes);
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kF32SmemBytes<D>);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const int QT = ROWS / G;
   dim3 grid(N, KH, (Tq + QT - 1) / QT);
-  paged_prefill_kernel<kCap><<<grid, THREADS, kF32SmemBytes, stream>>>(
+  paged_prefill_kernel<kCap><<<grid, F32_THREADS, kF32SmemBytes<D>, stream>>>(
       (const float*)q, (const float*)k_pool, (const float*)v_pool,
       (const int*)page_tables, (const int*)q_starts, (const int*)kv_lens,
       (float*)out, layer, num_pages, KH, G, TP, maxp, Tq, window, sm_scale, softcap);
   return (int)cudaGetLastError();
 }
 
-template <typename P>
+template <typename P, bool kCap>
 int launch_mma(const void* q, const void* k_pool, const void* v_pool,
                const void* page_tables, const void* q_starts,
                const void* kv_lens, const float* k_scales,
@@ -301,9 +341,19 @@ int launch_mma(const void* q, const void* k_pool, const void* v_pool,
                int window, float sm_scale, float softcap, cudaStream_t stream) {
   const int QT = ROWS / G;
   dim3 grid(N, KH, (Tq + QT - 1) / QT);
-  auto kernel = softcap > 0.f ? paged_prefill_mma_kernel<P, true>
-                              : paged_prefill_mma_kernel<P, false>;
-  kernel<<<grid, THREADS, 0, stream>>>(
+  size_t smem = 0;
+  if constexpr (D != 128) {
+    static bool configured = false;  // dynamic shared memory above 48 KB
+    if (!configured) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          paged_prefill_mma_kernel<P, kCap>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMmaSmem256);
+      if (e != cudaSuccess) return (int)e;
+      configured = true;
+    }
+    smem = kMmaSmem256;
+  }
+  paged_prefill_mma_kernel<P, kCap><<<grid, THREADS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const P*)k_pool, (const P*)v_pool,
       (const int*)page_tables, (const int*)q_starts, (const int*)kv_lens,
       k_scales, v_scales, (typename Types<P>::Out*)out, layer, num_pages, KH,
@@ -313,26 +363,28 @@ int launch_mma(const void* q, const void* k_pool, const void* v_pool,
 
 }  // namespace
 
-// q is in the pool's type for float32 and bf16 pools and bf16 for int8 and
-// e4m3 pools, whose output is float32; k_scales / v_scales: an int8 pool's
+// head_dim: the pools' width, which must be this library's (D); q is in
+// the pool's type for float32 and bf16 pools and bf16 for int8 and e4m3
+// pools, whose output is float32; k_scales / v_scales: an int8 pool's
 // [L, KH] float32 scales (null: 1); softcap: the logit soft-cap (0: off).
 extern "C" int kvc_paged_prefill(
-    int dtype, const void* q, const void* k_pool, const void* v_pool,
+    int dtype, int head_dim, const void* q, const void* k_pool, const void* v_pool,
     const void* page_tables, const void* q_starts, const void* kv_lens,
     const float* k_scales, const float* v_scales, void* out, int N,
     int layer, int num_pages, int KH, int G, int TP, int maxp, int Tq,
     int window, float sm_scale, float softcap, void* stream) {
-  if (G < 1 || ROWS % G) return (int)cudaErrorInvalidValue;
+  if (head_dim != D || G < 1 || ROWS % G) return (int)cudaErrorInvalidValue;
   if (N == 0 || Tq == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kvc::kF32)
     return (softcap > 0.f ? launch_f32<true> : launch_f32<false>)(
         q, k_pool, v_pool, page_tables, q_starts, kv_lens, out, N, layer,
         num_pages, KH, G, TP, maxp, Tq, window, sm_scale, softcap, s);
-#define KVC_MMA(P)                                                          \
-  return launch_mma<P>(q, k_pool, v_pool, page_tables, q_starts, kv_lens,   \
-                       k_scales, v_scales, out, N, layer, num_pages, KH, G, \
-                       TP, maxp, Tq, window, sm_scale, softcap, s)
+#define KVC_MMA(P)                                                           \
+  return (softcap > 0.f ? launch_mma<P, true> : launch_mma<P, false>)(       \
+      q, k_pool, v_pool, page_tables, q_starts, kv_lens, k_scales, v_scales, \
+      out, N, layer, num_pages, KH, G, TP, maxp, Tq, window, sm_scale,       \
+      softcap, s)
   switch (dtype) {
     case kvc::kBF16: KVC_MMA(__nv_bfloat16);
     case kvc::kI8: KVC_MMA(int8_t);

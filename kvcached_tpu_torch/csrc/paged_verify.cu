@@ -48,6 +48,14 @@
 //     thread per head_dim lane.  Each block writes an unnormalised (max,
 //     sum, acc) partial per query row;
 //   - pass 2, grid (row, kv head, query row): merges the non-empty splits.
+// head_dim: 128, or 256 when built with -DKVC_HEAD_DIM=256 (the
+// paged_verify_d256 library; the wrapper picks the library by the pools'
+// width).  At 256 the tensor-core pass stages the block's 64 query rows in
+// shared memory beside the double-buffered K and V tiles (165 KB of dynamic
+// shared memory: one block an SM) and reads one k-step's Q fragment at a
+// time (kv_common.cuh mma_scores), and the float32 pass gives each of the
+// 256 lanes a thread (137 KB).  The query-row limit stays ROWS = 64 (T *
+// G <= 64) at both widths.
 // Not yet done: wgmma, a TMA ring, and folding the token store into pass 1
 // (as K1 does).
 #include "kv_common.cuh"
@@ -56,8 +64,13 @@ namespace {
 
 using namespace kvc;
 
-constexpr int D = kHeadDim;
-constexpr int THREADS = kThreads;
+#ifndef KVC_HEAD_DIM
+#define KVC_HEAD_DIM 128
+#endif
+constexpr int D = KVC_HEAD_DIM;  // head_dim of this library
+static_assert(D == 128 || D == 256, "head_dim 128 or 256");
+constexpr int THREADS = kThreads;  // token writes and tensor-core blocks: 4 warps
+constexpr int F32_THREADS = D;     // float32 blocks: one thread per lane
 constexpr int ROWS = kF32Rows;  // query rows per block (ops MAX_VERIFY_ROWS)
 constexpr int SPLIT = 256;      // tokens per split block (ops VERIFY_SPLIT)
 constexpr int MMA_KT = kMmaKeys;
@@ -65,7 +78,9 @@ constexpr int MMA_LD = D + 8;   // padded smem row (bf16 elements)
 constexpr int TILE = kF32Keys;
 constexpr int LOADS = MMA_KT * (D / 8) / THREADS;  // K (and V) vectors a thread copies a tile
 constexpr int MMA_TILE = MMA_KT * MMA_LD;            // bf16 elements of one K or V tile
-constexpr size_t kSmemBF16 = sizeof(__nv_bfloat16) * 4 * MMA_TILE;  // K and V, two buffers
+// K and V, two buffers; at head_dim 256 also the block's query rows
+constexpr size_t kSmemBF16 =
+    sizeof(__nv_bfloat16) * (4 * MMA_TILE + (D == 128 ? 0 : ROWS * MMA_LD));
 
 // Keys [lo, hi) of split `split` of a row: from the window start of the
 // row's first query, below the row's length and the table width.  Pass 1
@@ -181,7 +196,8 @@ __global__ void __launch_bounds__(THREADS) verify_split_mma_kernel(
     float* __restrict__ part_acc,              // [B, KH, S, R, D]
     int layer, int num_pages, int KH, int G, int TP, int maxp, int Tq,
     int window, float sm_scale, float softcap) {
-  // two buffers of a K tile and a V tile: [2][MMA_KT][MMA_LD] each
+  // two buffers of a K tile and a V tile: [2][MMA_KT][MMA_LD] each (and
+  // at head_dim 256 the query rows, [ROWS][MMA_LD])
   extern __shared__ uint4 smem_tiles[];
   __nv_bfloat16* const k_buf = reinterpret_cast<__nv_bfloat16*>(smem_tiles);
   __nv_bfloat16* const v_buf = k_buf + 2 * MMA_TILE;
@@ -200,13 +216,16 @@ __global__ void __launch_bounds__(THREADS) verify_split_mma_kernel(
   // this lane's two query rows: r[0] = 16*warp + gq, r[1] = r[0] + 8
   int qpos[2];
   bool live[2];
+#if KVC_HEAD_DIM == 128
   uint32_t qa[D / 16][4];
+#endif
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = 16 * warp + gq + 8 * i;
     live[i] = r < R;
     qpos[i] = base + r / G;
   }
+#if KVC_HEAD_DIM == 128
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {
 #pragma unroll
@@ -223,6 +242,20 @@ __global__ void __launch_bounds__(THREADS) verify_split_mma_kernel(
       qa[ks][2 + i] = hi32;   // a2 / a3: columns 2tq+8, 2tq+9
     }
   }
+#else
+  // the block's query rows into shared memory (zeros past R); the first
+  // tile's barrier publishes them
+  auto& q_s = *reinterpret_cast<__nv_bfloat16(*)[ROWS][MMA_LD]>(v_buf + 2 * MMA_TILE);
+  for (int idx = tid; idx < ROWS * (D / 8); idx += THREADS) {
+    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r < R)
+      v = *reinterpret_cast<const uint4*>(
+          q + (((size_t)b * Tq + r / G) * QH + h * G + r % G) * D + c);
+    *reinterpret_cast<uint4*>(&q_s[r][c]) = v;
+  }
+  const auto& qa = *reinterpret_cast<const __nv_bfloat16(*)[16][MMA_LD]>(q_s[16 * warp]);
+#endif
 
   float o[D / 8][4];
 #pragma unroll
@@ -250,8 +283,8 @@ __global__ void __launch_bounds__(THREADS) verify_split_mma_kernel(
     }
     __syncthreads();  // this tile landed for every thread
     if (warp_live)  // a warp with no query row only copies
-      mma_attend_tile<kCap>(qa, live, qpos, tile(k_buf, buf), tile(v_buf, buf), t0,
-                            nk, window, sm_scale, ksc, softcap, o, m, l);
+      mma_attend_tile<kCap, D>(qa, live, qpos, tile(k_buf, buf), tile(v_buf, buf), t0,
+                               nk, window, sm_scale, ksc, softcap, o, m, l);
     __syncthreads();  // this buffer is consumed: the next copy may refill it
   }
 
@@ -279,7 +312,7 @@ __global__ void __launch_bounds__(THREADS) verify_split_mma_kernel(
 // Pass 1, float32 pools: CUDA cores, one thread per head_dim lane; kCap:
 // the soft-capping instance.
 template <bool kCap>
-__global__ void __launch_bounds__(THREADS) verify_split_f32_kernel(
+__global__ void __launch_bounds__(F32_THREADS) verify_split_f32_kernel(
     const float* __restrict__ q,              // [B, Tq, KH*G, D]
     const float* __restrict__ k_pool,         // [L, P, KH, TP, D]
     const float* __restrict__ v_pool,
@@ -335,8 +368,8 @@ __global__ void __launch_bounds__(THREADS) verify_split_f32_kernel(
       }
     }
     __syncthreads();
-    f32_attend_tile<kCap>(q_s, k_s, v_s, p_s, m_s, l_s, a_s, acc, R, G, base, t0, nk,
-                          window, sm_scale, softcap);
+    f32_attend_tile<kCap, D>(q_s, k_s, v_s, p_s, m_s, l_s, a_s, acc, R, G, base, t0, nk,
+                             window, sm_scale, softcap);
     __syncthreads();
   }
 
@@ -422,11 +455,11 @@ int split_f32(dim3 grid, const void* q, const void* k_pool, const void* v_pool,
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
         verify_split_f32_kernel<kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kF32SmemBytes);
+        (int)kF32SmemBytes<D>);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  verify_split_f32_kernel<kCap><<<grid, THREADS, kF32SmemBytes, stream>>>(
+  verify_split_f32_kernel<kCap><<<grid, F32_THREADS, kF32SmemBytes<D>, stream>>>(
       (const float*)q, (const float*)k_pool, (const float*)v_pool,
       (const int*)page_tables, (const int*)seq_lens, part_m, part_l, part_acc,
       layer, num_pages, KH, G, TP, maxp, Tq, window, sm_scale, softcap);
@@ -475,20 +508,21 @@ int launch(const void* q, void* k_pool, void* v_pool, const void* page_tables,
 
 }  // namespace
 
-// scratch: B * KH * S * T * G * (D + 2) floats, S = max(ceil(maxp * TP /
-// 256), 1); the wrapper allocates it.  T * G <= 64.  q, the tokens and out
+// head_dim: the pools' width, which must be this library's (D).  scratch:
+// B * KH * S * T * G * (D + 2) floats, S = max(ceil(maxp * TP / 256), 1);
+// the wrapper allocates it.  T * G <= 64.  q, the tokens and out
 // are in the pool's type for float32 and bf16 pools; for int8 and e4m3
 // pools q is bf16, the tokens and out float32.  k_scales / v_scales: an
 // int8 pool's [L, KH] float32 scales (null: 1); softcap: the logit
 // soft-cap (0: off).
 extern "C" int kvc_paged_verify(
-    int dtype, const void* q, void* k_pool, void* v_pool,
+    int dtype, int head_dim, const void* q, void* k_pool, void* v_pool,
     const void* page_tables, const void* seq_lens, const void* k_new,
     const void* v_new, const void* slot_pages, const void* slot_offsets,
     const float* k_scales, const float* v_scales, void* out, void* scratch,
     int B, int T, int layer, int num_pages, int KH, int G, int TP, int maxp,
     int window, float sm_scale, float softcap, void* stream) {
-  if (G < 1 || T < 1 || T * G > ROWS) return (int)cudaErrorInvalidValue;
+  if (head_dim != D || G < 1 || T < 1 || T * G > ROWS) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
 #define KVC_DTYPE(P)                                                         \

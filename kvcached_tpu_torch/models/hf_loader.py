@@ -2,15 +2,18 @@
 layout.
 
 Port of ``kvcached_tpu/models/hf_loader.py`` for the Llama-shaped families
-(Llama, Mistral, Qwen2, Qwen3).  A minimal numpy safetensors reader is
+(Llama, Mistral, Qwen2, Qwen3) and Gemma2 (the hybrid family:
+:class:`~kvcached_tpu_torch.models.hybrid.HybridConfig`, head_dim read from
+the config, 256 for Gemma-2-2B and -9B).  A minimal numpy safetensors reader is
 included (header = 8-byte little-endian length + JSON of ``{name: {dtype,
 shape, data_offsets}}``); BF16 tensors are widened to float32 exactly by a
 bit shift, so no extra package is needed.  Projections are transposed to
 input-major (``h @ w``) and stacked on a leading layer axis, the layout of
 :class:`~kvcached_tpu_torch.models.llama.LlamaModel`.
 
-Gemma-class checkpoints (the hybrid family), the transformers tokenizer
-wrapper and ``engine_from_checkpoint`` are not ported yet.
+Gemma3 checkpoints (unequal layer groups, per-group RoPE, q/k norms), the
+transformers tokenizer wrapper and ``engine_from_checkpoint`` are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 from ..device.pool import resolve_device, torch_dtype
 from ..logging_utils import get_kvcached_logger
+from .hybrid import HybridConfig, HybridModel
 from .llama import LlamaConfig, LlamaModel
 
 logger = get_kvcached_logger(__name__)
@@ -105,13 +109,51 @@ def _rope_scaling_from_hf(hc: dict) -> tuple | None:
         f"unsupported rope_scaling type {kind!r} (supported: linear, llama3)")
 
 
-def config_from_hf(ckpt_dir: str, dtype: str = "bfloat16") -> LlamaConfig:
+def _gemma2_config(hc: dict, dtype: str) -> HybridConfig:
+    """Gemma2ForCausalLM → HybridConfig: alternating sliding and full layer
+    groups, the tanh GELU, ``(1 + w)`` norms, sandwich post-norms, the
+    sqrt(hidden) embedding scale, attention and final logit soft-capping,
+    and the query_pre_attn_scalar softmax scale."""
+    L = hc["num_hidden_layers"]
+    head_dim = hc.get("head_dim", hc["hidden_size"] // hc["num_attention_heads"])
+    sw = hc.get("sliding_window", 4096)
+    if hc.get("layer_types"):
+        windows = tuple(sw if t == "sliding_attention" else None for t in hc["layer_types"])
+    else:
+        # transformers' Gemma2DecoderLayer: even layer indices slide
+        windows = tuple(sw if i % 2 == 0 else None for i in range(L))
+    return HybridConfig(
+        vocab_size=hc["vocab_size"],
+        hidden_size=hc["hidden_size"],
+        num_layers=L,
+        num_heads=hc["num_attention_heads"],
+        num_kv_heads=hc.get("num_key_value_heads", hc["num_attention_heads"]),
+        head_dim=head_dim,
+        intermediate_size=hc["intermediate_size"],
+        rope_theta=float(hc.get("rope_theta", 10000.0)),
+        rms_eps=float(hc.get("rms_norm_eps", 1e-6)),
+        dtype=dtype,
+        layer_windows=windows,
+        act="gelu_tanh",
+        norm_offset=True,
+        embed_scale=True,
+        post_norms=True,
+        attn_softcap=hc.get("attn_logit_softcapping"),
+        final_softcap=hc.get("final_logit_softcapping"),
+        query_scale=float(hc.get("query_pre_attn_scalar", head_dim)),
+        rope_scaling=_rope_scaling_from_hf(hc),
+    )
+
+
+def config_from_hf(ckpt_dir: str, dtype: str = "bfloat16") -> LlamaConfig | HybridConfig:
     with open(os.path.join(ckpt_dir, "config.json")) as f:
         hc = json.load(f)
     archs = hc.get("architectures") or []
+    if "Gemma2ForCausalLM" in archs:
+        return _gemma2_config(hc, dtype)
     if any(a.startswith("Gemma") for a in archs):
         raise NotImplementedError(
-            f"{archs}: the Gemma (hybrid) family is not ported yet")
+            f"{archs}: Gemma3 (unequal layer groups) is not ported yet")
     if archs and not any(a in _LLAMA_LIKE_ARCHS for a in archs):
         raise ValueError(
             f"unsupported HF architecture {archs}: this loader covers "
@@ -164,13 +206,42 @@ def _stack(tensors: dict, fmt: str, L: int, transpose: bool) -> np.ndarray:
     ])
 
 
+def _gemma2_params(t: dict, cfg: HybridConfig, cast) -> HybridModel:
+    """Gemma2's sandwich-norm layout: ``mlp_norm`` is
+    pre_feedforward_layernorm, and post_attention_layernorm really is a
+    norm on the attention branch (``post_attn_norm``).  Norm weights stay
+    zero-centred, as stored (the model adds the one); the LM head is the
+    embedding's transpose (tied)."""
+    if "model.layers.0.self_attn.q_norm.weight" in t:
+        raise ValueError("a Gemma2 checkpoint has no q/k norms; this one has (Gemma3?)")
+    pre, L = "model.layers.{}.", cfg.num_layers
+    names = {
+        "attn_norm": ("input_layernorm", False),
+        "wq": ("self_attn.q_proj", True),
+        "wk": ("self_attn.k_proj", True),
+        "wv": ("self_attn.v_proj", True),
+        "wo": ("self_attn.o_proj", True),
+        "post_attn_norm": ("post_attention_layernorm", False),
+        "mlp_norm": ("pre_feedforward_layernorm", False),
+        "post_ffw_norm": ("post_feedforward_layernorm", False),
+        "w_gate": ("mlp.gate_proj", True),
+        "w_up": ("mlp.up_proj", True),
+        "w_down": ("mlp.down_proj", True),
+    }
+    layers = {k: cast(_stack(t, pre + hf + ".weight", L, tr)) for k, (hf, tr) in names.items()}
+    embed = cast(t["model.embed_tokens.weight"])
+    lm_head = (cast(t["lm_head.weight"].T) if "lm_head.weight" in t
+               else embed.T.contiguous())  # tied embeddings
+    return HybridModel(cfg, embed, layers, cast(t["model.norm.weight"]), lm_head)
+
+
 def params_from_hf(
-    ckpt_dir: str, cfg: LlamaConfig | None = None, dtype: str = "bfloat16",
-    *, device=None,
-) -> tuple[LlamaConfig, LlamaModel]:
-    """Load an HF Llama-family checkpoint onto ``device`` (default: the
-    card).  HF stores projections output-major ([out, in]); every
-    projection is transposed to [in, out] and layers are stacked."""
+    ckpt_dir: str, cfg: LlamaConfig | HybridConfig | None = None,
+    dtype: str = "bfloat16", *, device=None,
+) -> tuple[LlamaConfig | HybridConfig, LlamaModel]:
+    """Load an HF Llama-family or Gemma2 checkpoint onto ``device``
+    (default: the card).  HF stores projections output-major ([out, in]);
+    every projection is transposed to [in, out] and layers are stacked."""
     if cfg is None:
         cfg = config_from_hf(ckpt_dir, dtype=dtype)
     dev = resolve_device(device)
@@ -181,6 +252,11 @@ def params_from_hf(
     def cast(x):
         return torch.from_numpy(np.asarray(x, np.float32).copy()).to(device=dev, dtype=tdt)
 
+    if isinstance(cfg, HybridConfig):
+        params = _gemma2_params(t, cfg, cast)
+        logger.info("loaded HF Gemma2 checkpoint %s: %d layers, %d tensors", ckpt_dir, L,
+                    len(t))
+        return cfg, params
     pre = "model.layers.{}."
     layers = {
         "attn_norm": _stack(t, pre + "input_layernorm.weight", L, False),

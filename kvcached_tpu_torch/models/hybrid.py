@@ -166,6 +166,40 @@ class HybridConfig:
         base.update(kw)
         return cls(**base)
 
+    @classmethod
+    def gemma2_9b(cls, **kw):
+        """Gemma-2-9B's widths, from its published ``config.json``
+        (google/gemma-2-9b): 42 layers, hidden 3584, 16 query heads and 8
+        kv heads of head_dim 256 (a query width of 4096, not the hidden
+        size), FFN 14336, vocab 256000, query_pre_attn_scalar 256,
+        sliding_window 4096, attn_logit_softcapping 50.0,
+        final_logit_softcapping 30.0, rms_norm_eps 1e-6, rope_theta 10000,
+        gelu_pytorch_tanh.  Even layers slide, so the two groups hold 21
+        layers each.  The LM head is a matrix of its own (the checkpoint
+        ties it to the embedding): about 10.2 B parameters."""
+        L = kw.pop("num_layers", 42)
+        base = dict(
+            vocab_size=256000,
+            hidden_size=3584,
+            num_layers=L,
+            num_heads=16,
+            num_kv_heads=8,
+            head_dim=256,
+            intermediate_size=14336,
+            rope_theta=10000.0,
+            rms_eps=1e-6,
+            layer_windows=tuple(4096 if i % 2 == 0 else None for i in range(L)),
+            act="gelu_tanh",
+            norm_offset=True,
+            embed_scale=True,
+            post_norms=True,
+            attn_softcap=50.0,
+            final_softcap=30.0,
+            query_scale=256.0,
+        )
+        base.update(kw)
+        return cls(**base)
+
     # ---- group structure ---------------------------------------------------
 
     @property

@@ -5,7 +5,8 @@ PyTorch versions.
 :func:`reset_launch_counts` read and zero the wrappers' launch counters,
 :func:`launch_counts_by_dtype` reads them by pool type (the int8 and fp8
 modes of K1-K4 are their launches on byte pools; the soft-capped launches
-of K1 and K3 count under the pool type's name plus ``+softcap``).
+of K1, K1r, K3 and K4 count under the pool type's name plus ``+softcap``,
+and launches at head_dim 256 with ``+d256`` after that).
 """
 
 from .paged_attention import (

@@ -2,11 +2,15 @@
 
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``.  The
-build happens at first use, all sources at once (one ``nvcc`` process per
-source, started together), into a build directory that git ignores:
+attention kernels K1, K3 and K4 take the head dim as a compile-time
+constant: their sources are compiled once more with ``-DKVC_HEAD_DIM=256``
+into libraries of their own (``paged_decode_d256`` and so on), and the
+wrappers pick a library by the pools' width (:func:`lib_name`).  The build
+happens at first use, all libraries at once (one ``nvcc`` process per
+library, started together), into a build directory that git ignores:
 ``kvcached_tpu_torch/csrc/build`` or ``$KVCACHED_TORCH_BUILD_DIR``.  A
-library's file name carries a hash of its sources and flags, so an edited
-source is rebuilt and an unchanged one is reused.
+library's file name carries a hash of its source, headers and flags, so an
+edited source is rebuilt and an unchanged one is reused.
 
 Nothing here runs at import time; the CPU path never builds anything.
 """
@@ -21,7 +25,18 @@ import subprocess
 import threading
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
-SOURCES = ("paged_decode", "prefill_write", "paged_prefill", "paged_verify", "mla_attend")
+#: head dims of the attention kernels K1, K3 and K4 (csrc KVC_HEAD_DIM)
+HEAD_DIMS = (128, 256)
+#: sources whose kernels take the head dim as a compile-time constant
+PER_HEAD_DIM = ("paged_decode", "paged_prefill", "paged_verify")
+#: library name -> (source, extra nvcc flags): every source once, and the
+#: per-head-dim ones again for each other width
+LIBRARIES = {
+    **{n: (n, ()) for n in ("paged_decode", "prefill_write", "paged_prefill",
+                            "paged_verify", "mla_attend")},
+    **{f"{n}_d{d}": (n, (f"-DKVC_HEAD_DIM={d}",))
+       for n in PER_HEAD_DIM for d in HEAD_DIMS[1:]},
+}
 HEADERS = ("kv_common.cuh",)
 #: no --use_fast_math: it makes the int8 writers' ``x / scale`` an
 #: approximate divide, and the pools would no longer be bit-exact with the
@@ -35,18 +50,27 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: C entry points and their argument types, by library (pointers and the
-#: stream as c_void_p, so 64-bit addresses are passed whole)
+#: C entry points and their argument types, by source (pointers and the
+#: stream as c_void_p, so 64-bit addresses are passed whole; the attention
+#: entry points lead with dtype and head_dim)
 _SIGNATURES = {
-    "paged_decode": {"kvc_paged_decode": [_I] + [_P] * 13 + [_I] * 8 + [_F, _F, _I, _P]},
+    "paged_decode": {"kvc_paged_decode": [_I, _I] + [_P] * 13 + [_I] * 8 + [_F, _F, _I, _P]},
     "prefill_write": {"kvc_prefill_write": [_P] * 5 + [_I] * 5 + [_P],
                       "kvc_prefill_write_quant": [_I] + [_P] * 7 + [_I] * 5 + [_P],
                       "kvc_prefill_write_single": [_P] * 3 + [_I] * 5 + [_P]},
-    "paged_prefill": {"kvc_paged_prefill": [_I] + [_P] * 9 + [_I] * 9 + [_F, _F, _P]},
-    "paged_verify": {"kvc_paged_verify": [_I] + [_P] * 13 + [_I] * 9 + [_F, _F, _P]},
+    "paged_prefill": {"kvc_paged_prefill": [_I, _I] + [_P] * 9 + [_I] * 9 + [_F, _F, _P]},
+    "paged_verify": {"kvc_paged_verify": [_I, _I] + [_P] * 13 + [_I] * 9 + [_F, _F, _P]},
     "mla_attend": {"kvc_mla_attend": [_I] + [_P] * 11 + [_I] * 9 + [_F, _P],
                    "kvc_mla_wave_blocks": [_I, _I, ctypes.POINTER(_I)]},
 }
+
+
+def lib_name(source: str, head_dim: int) -> str:
+    """The library of ``source``'s kernels at ``head_dim`` (one of
+    :data:`HEAD_DIMS`, which the wrappers check): the source's own name at
+    128, ``<source>_d<D>`` otherwise."""
+    return source if head_dim == HEAD_DIMS[0] else f"{source}_d{head_dim}"
+
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -71,28 +95,31 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (name + ".cu",) + HEADERS:
+    source, defines = LIBRARIES[name]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + defines).encode())
+    for f in (source + ".cu",) + HEADERS:
         with open(os.path.join(CSRC, f), "rb") as fh:
             h.update(fh.read())
     return os.path.join(build_dir(), f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build_all() -> dict[str, str]:
-    """Compile every kernel source that has no up-to-date library, all in
-    parallel.  Returns {source name: library path}; raises with nvcc's
-    output if any build fails.  nvcc's output (with ``ptxas -v``'s
-    registers and shared memory per kernel) is kept in ``<name>.log``."""
+    """Compile every kernel library that has no up-to-date build, all in
+    parallel.  Returns {library name: path}; raises with nvcc's output if
+    any build fails.  nvcc's output (with ``ptxas -v``'s registers, spill
+    bytes and shared memory per kernel) is kept in ``<name>.log``."""
     with _lock:
         os.makedirs(build_dir(), exist_ok=True)
-        paths = {n: _lib_path(n) for n in SOURCES}
-        todo = [n for n in SOURCES if not os.path.exists(paths[n])]
+        paths = {n: _lib_path(n) for n in LIBRARIES}
+        todo = [n for n in LIBRARIES if not os.path.exists(paths[n])]
         if todo:
             nvcc = nvcc_path()
             procs = {}
             for n in todo:
                 tmp = f"{paths[n]}.{os.getpid()}.tmp"
-                cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, n + ".cu")]
+                source, defines = LIBRARIES[n]
+                cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", tmp,
+                       os.path.join(CSRC, source + ".cu")]
                 procs[n] = (tmp, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                     text=True))
@@ -102,7 +129,7 @@ def build_all() -> dict[str, str]:
                 with open(os.path.join(build_dir(), n + ".log"), "w") as f:
                     f.write(out)
                 if p.returncode != 0:
-                    failed.append(f"--- {n}.cu (nvcc rc={p.returncode})\n{out}")
+                    failed.append(f"--- {n} (nvcc rc={p.returncode})\n{out}")
                 else:
                     os.replace(tmp, paths[n])
             if failed:
@@ -111,7 +138,8 @@ def build_all() -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel source, built on first use."""
+    """The loaded library ``name`` (a key of :data:`LIBRARIES`), built on
+    first use."""
     lib = _libs.get(name)
     if lib is None:
         path = build_all()[name]
@@ -119,7 +147,7 @@ def load(name: str) -> ctypes.CDLL:
             lib = _libs.get(name)
             if lib is None:
                 lib = ctypes.CDLL(path)
-                for fn_name, argtypes in _SIGNATURES[name].items():
+                for fn_name, argtypes in _SIGNATURES[LIBRARIES[name][0]].items():
                     fn = getattr(lib, fn_name)
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int

@@ -33,7 +33,9 @@ the JAX package donated them and got new arrays back.  Each wrapper counts
 its kernel launches in ``<wrapper>.launches``.
 
 The kernels take float32, bfloat16, int8 and float8_e4m3fn pools with
-head_dim 128, and in the MLA mode one latent pool of any of these types at
+head_dim 128 or 256 (:data:`KERNEL_HEAD_DIM`: K1, K1r, K3 and K4 launch
+an instance compiled for the pools' width, K2 copies any width), and in
+the MLA mode one latent pool of any of these types at
 DeepSeek-V2's width (640 lanes, values 512).  Byte pools hold what the
 reference's writes store: int8 ``clip(round(x / scale), -127, 127)`` with
 per-(layer, kv head) float32 scales ``[L, KH]`` (the K scale folds into the
@@ -49,7 +51,8 @@ of the kernel at launch); in the MLA modes it raises
 :func:`paged_attention` and the MLA mode with several kv heads or a window:
 they are not ported yet.  Each wrapper counts its launches in
 ``<wrapper>.launches`` and by pool type in ``<wrapper>.launches_by_dtype``,
-soft-capped launches under the pool type's name plus ``+softcap``.
+soft-capped launches under the pool type's name plus ``+softcap``, and
+launches at head_dim 256 with ``+d256`` after that.
 """
 
 from __future__ import annotations
@@ -71,7 +74,9 @@ BYTE_DTYPES = (torch.int8, torch.float8_e4m3fn)
 #: the largest magnitude the reference's float32 → e4m3 conversion keeps
 #: finite: 464 ties to 448, anything larger becomes NaN
 E4M3_LIMIT = 464.0
-KERNEL_HEAD_DIM = 128
+#: head dims the K1-K4 kernels take (a library compiled for each, csrc
+#: KVC_HEAD_DIM); any other width raises ValueError
+KERNEL_HEAD_DIM = _build.HEAD_DIMS
 MAX_GQA_GROUP = 16
 #: tokens per block of K1's split-K pass (csrc/paged_decode.cu SPLIT)
 DECODE_SPLIT = 256
@@ -110,11 +115,13 @@ def _unsupported(mla_v_dim=None, logit_softcap=None, pool_dtype=None) -> None:
             "(float32, bfloat16, int8, float8_e4m3fn)")
 
 
-def _count(wrapper, dtype, softcap=0.0) -> None:
+def _count(wrapper, dtype, softcap=0.0, head_dim=KERNEL_HEAD_DIM[0]) -> None:
     """One launch of ``wrapper``'s kernel on a ``dtype`` pool, counted by
-    pool type under ``"<type>+softcap"`` when it soft-capped."""
+    pool type under ``"<type>+softcap"`` when it soft-capped, with
+    ``"+d<head_dim>"`` after that at a head_dim other than 128."""
     wrapper.launches += 1
-    name = str(dtype).replace("torch.", "") + ("+softcap" if softcap else "")
+    name = (str(dtype).replace("torch.", "") + ("+softcap" if softcap else "")
+            + ("" if head_dim == KERNEL_HEAD_DIM[0] else f"+d{head_dim}"))
     wrapper.launches_by_dtype[name] = wrapper.launches_by_dtype.get(name, 0) + 1
 
 
@@ -240,7 +247,7 @@ def _require_pools(k_pool, v_pool) -> tuple[int, int, int, int, int]:
     if not k_pool.is_contiguous():
         raise ValueError("k_pool: must be contiguous")
     L, P, KH, TP, D = k_pool.shape
-    if D != KERNEL_HEAD_DIM:
+    if D not in KERNEL_HEAD_DIM:
         raise ValueError(f"the CUDA kernels take head_dim {KERNEL_HEAD_DIM}, got {D}")
     return L, P, KH, TP, D
 
@@ -408,15 +415,15 @@ def _decode_launch(q, k_pool, v_pool, page_tables, seq_lens, layer, k_new,
     splits = -(-maxp * TP // DECODE_SPLIT)
     scratch = torch.empty(B * KH * splits * GT * (D + 2), dtype=torch.float32,
                           device=q.device)
-    lib = _build.load("paged_decode")
+    lib = _build.load(_build.lib_name("paged_decode", D))
     rc = lib.kvc_paged_decode(
-        KERNEL_DTYPES[dt], qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        KERNEL_DTYPES[dt], D, qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_tables.data_ptr(), seq_lens.data_ptr(), *ptrs, _ptr(ks), _ptr(vs),
         out.data_ptr(), scratch.data_ptr(), B, layer, P, KH, G, TP, maxp,
         int(window or 0), float(sm_scale), float(softcap), int(write_kv), _stream(q),
     )
     _build.check(rc, "paged_decode")
-    return out.to(q.dtype)
+    return out.to(q.dtype), D
 
 
 def paged_attention_decode(
@@ -481,10 +488,10 @@ def paged_attention_decode(
             q, k_pool, v_pool, page_tables, seq_lens, layer, k_new, v_new,
             slot_pages, slot_offsets, sm_scale=sm_scale, window=window,
             k_scales=k_scales, v_scales=v_scales, logit_softcap=logit_softcap)
-    out = _decode_launch(q, k_pool, v_pool, page_tables, seq_lens, layer,
-                         k_new, v_new, slot_pages, slot_offsets, sm_scale,
-                         window, True, k_scales, v_scales, cap)
-    _count(paged_attention_decode, k_pool.dtype, cap)
+    out, D = _decode_launch(q, k_pool, v_pool, page_tables, seq_lens, layer,
+                            k_new, v_new, slot_pages, slot_offsets, sm_scale,
+                            window, True, k_scales, v_scales, cap)
+    _count(paged_attention_decode, k_pool.dtype, cap, D)
     return out, k_pool, v_pool
 
 
@@ -517,10 +524,10 @@ def paged_attention(
             q, k_pool, v_pool, page_tables, seq_lens, layer, None, None,
             None, None, sm_scale=sm_scale, window=window, write_kv=False,
             k_scales=k_scales, v_scales=v_scales, logit_softcap=logit_softcap)[0]
-    out = _decode_launch(q, k_pool, v_pool, page_tables, seq_lens, layer,
-                         None, None, None, None, sm_scale, window, False,
-                         k_scales, v_scales, cap)
-    _count(paged_attention, k_pool.dtype, cap)
+    out, D = _decode_launch(q, k_pool, v_pool, page_tables, seq_lens, layer,
+                            None, None, None, None, sm_scale, window, False,
+                            k_scales, v_scales, cap)
+    _count(paged_attention, k_pool.dtype, cap, D)
     return out
 
 
@@ -605,7 +612,7 @@ def write_prefill_kv(
             v_pool.data_ptr(), pages.data_ptr(), layer, P, KH, n,
             TP * D * k_pool.element_size(), _stream(k_pool))
     _build.check(rc, "prefill_write")
-    _count(write_prefill_kv, dt)
+    _count(write_prefill_kv, dt, head_dim=D)
     return k_pool, v_pool
 
 
@@ -750,16 +757,16 @@ def paged_attention_verify(
     splits = max(-(-maxp * TP // VERIFY_SPLIT), 1)
     scratch = torch.empty(B * KH * splits * T * G * (D + 2), dtype=torch.float32,
                           device=q.device)
-    lib = _build.load("paged_verify")
+    lib = _build.load(_build.lib_name("paged_verify", D))
     rc = lib.kvc_paged_verify(
-        KERNEL_DTYPES[dt], qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        KERNEL_DTYPES[dt], D, qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_tables.data_ptr(), seq_lens.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), slot_pages.data_ptr(), slot_offsets.data_ptr(),
         _ptr(ks), _ptr(vs), out.data_ptr(), scratch.data_ptr(), B, T, layer, P,
         KH, G, TP, maxp, int(window or 0), float(sm_scale), cap, _stream(q),
     )
     _build.check(rc, "paged_verify")
-    _count(paged_attention_verify, dt, cap)
+    _count(paged_attention_verify, dt, cap, D)
     return out.to(q.dtype), k_pool, v_pool
 
 

@@ -17,7 +17,8 @@ Byte pools (int8 with ``k_scales``/``v_scales`` [L, KH], or e4m3) multiply
 bf16 operands with float32 accumulation and give the output in q's type,
 as in :mod:`.paged_attention`.  ``logit_softcap`` soft-caps the scores
 (Gemma2), on every pool type; soft-capped launches are counted under
-``"<type>+softcap"``.
+``"<type>+softcap"``.  head_dim 128 or 256 (a library compiled for each
+width), counted under ``"+d256"`` at 256.
 
 The MLA mode (``mla_v_dim``, K3m: the same Pallas kernel over the single
 latent pool) launches ``csrc/mla_attend.cu`` through
@@ -183,15 +184,15 @@ def paged_prefill_attention_batch(
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
     out = torch.empty(qc.shape, dtype=odt, device=q.device)
-    lib = _build.load("paged_prefill")
+    lib = _build.load(_build.lib_name("paged_prefill", D))
     rc = lib.kvc_paged_prefill(
-        KERNEL_DTYPES[dt], qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        KERNEL_DTYPES[dt], D, qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_tables.data_ptr(), q_starts.data_ptr(), kv_lens.data_ptr(),
         _ptr(ks), _ptr(vs), out.data_ptr(), N, layer, P, KH, G, TP, maxp, T,
         int(window or 0), float(sm_scale), cap, _stream(q),
     )
     _build.check(rc, "paged_prefill")
-    _count(paged_prefill_attention_batch, dt, cap)
+    _count(paged_prefill_attention_batch, dt, cap, D)
     return out.to(q.dtype)
 
 

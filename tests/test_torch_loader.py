@@ -47,6 +47,9 @@ def test_bf16_safetensors_widen_exactly(tmp_path):
 
 
 def test_gemma_family_not_ported(tmp_path):
-    (tmp_path / "config.json").write_text('{"architectures": ["Gemma2ForCausalLM"]}')
+    """Gemma3 (unequal layer groups) is not ported yet; Gemma2 is, and
+    tests/test_torch_hd256_model.py holds its loader against the JAX
+    package's."""
+    (tmp_path / "config.json").write_text('{"architectures": ["Gemma3ForCausalLM"]}')
     with pytest.raises(NotImplementedError):
         th.config_from_hf(str(tmp_path))
