@@ -11,8 +11,8 @@ Phases (each prints its own lines; any failure exits nonzero):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: the five CUDA kernel sources are compiled from
-   ``kvcached_tpu_torch/csrc`` into eight libraries (K1's, K3's and K4's
+2. build: the six CUDA kernel sources are compiled from
+   ``kvcached_tpu_torch/csrc`` into nine libraries (K1's, K3's and K4's
    sources once more at head_dim 256; one nvcc per library, in parallel),
    with ptxas' register counts and spill bytes;
 3. kernels: K1, K1r, K2, K3 and K4 against their plain PyTorch versions on
@@ -120,7 +120,32 @@ Phases (each prints its own lines; any failure exits nonzero):
    phase 10's model is freed: phase 10's parts (a)-(f) through the same
    function at its widths (42 layers, 10.2 B parameters, 780 bf16 and 1560
    byte arena pages of 21 layers), log tag ``[gemma9]``; the head_dim 256
-   launches (K1, K2, K3 in (b) and (f), K4 in (e) and (f)) must be > 0.
+   launches (K1, K2, K3 in (b) and (f), K4 in (e) and (f)) must be > 0;
+12. dp replicas on the one card (``LLMEngine(mesh=make_mesh(dp=2,
+   devices=[cuda, cuda]))``: the replicas share the loaded weights and each
+   has its own pool), each part serving the same requests at dp = 1 and
+   at dp = 2 with the launch counters zeroed just before the dp = 2 run and
+   read just after; rows must move between the replicas (a neighbour
+   finishes and the batch shifts), the replicas' pools must be equal byte
+   for byte, and the share of tokens equal to dp = 1's is printed, with
+   the first token that parts and the top two logits there.  (a) after
+   phase 4, Llama-3-8B bf16: phase 4's mix with staggered lengths, K1, K2,
+   K3 and K7 > 0; (b) in phase 7, its float32 weights (TF32 off): four
+   requests of staggered lengths at max_batch 4 without and with spec
+   decode, tokens identical to dp = 1 and pools within 1e-4 of its pool
+   (K7, and K4 with spec, > 0); (c) after phase 9: the mix on an int8 and
+   an e4m3 pool (K7 of each mode > 0), then GREW/SHRANK/CORRECT on a dp = 2
+   engine over an int8 pool; (d) in phase 8: the mix on bf16, int8 and
+   e4m3 latent pools (K8 of each mode > 0) and, on the float32 copy, tokens
+   identical to dp = 1; (e) in phase 11, on its 4-layer float32 model: a
+   float32 arena with tokens identical to dp = 1, and an int8 arena (K7 in
+   its group form, per-model-layer scales, > 0).  Phase 3 holds K7 and K8
+   against their plain versions on every pool type (K7 at Llama-3-8B's
+   decode shapes and in the hybrid form at Gemma-2-9B's widths, K8 at
+   DeepSeek-V2-Lite's latent), bit-exact, with the rewrite check: K1's
+   (K5's) fused write, then K7 (K8) of the same tokens, leaves the pools'
+   bytes unchanged; their library yardstick is ``index_put_`` of the cast
+   values (byte pools have none).
 
 The line before last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.  ``--rehearse`` runs the control flow
@@ -949,6 +974,115 @@ def mla_prefill(torch, ops, F, case, dtype, timed):
     return res
 
 
+def kernel_tokens_write(torch, ops, dev, S, dtype, *, Lk, L, KH, D, pool_layers=None,
+                        group_index=None, single=False, timed=False):
+    """K7, or K8 with ``single`` (one buffer: the MLA latent pool), vs its
+    plain version: one decode token per (kv layer, row) for S["B"] rows,
+    each at the last slot of a random length on a two-page table, row 5's
+    slots on the zero page (discarded).  ``pool_layers`` (default the
+    identity) with ``group_index``: the hybrid form, each kv layer writing
+    into its arena layer through its group's slot page (the groups' pages
+    distinct), int8 scales keyed by kv (model) layer.  The pools must be
+    bit-exact with the plain version's, the zero page untouched.  With the
+    identity, the rewrite check: K1's fused write (K5's for the latent
+    pool) of the same tokens, then the kernel, leaves the pools' bytes
+    unchanged.  ``timed``: device and host ms, the plain version's, the
+    bytes bound and ``index_put_`` of the cast values (float32 and bf16
+    pools; byte pools have no one call)."""
+    from kvcached_tpu_torch.ops import quantize_kv
+
+    B, TP = S["B"], S["TP"]
+    G = 1 if group_index is None else max(group_index) + 1
+    P = 1 + 2 * B * G
+    g = torch.Generator(device=dev).manual_seed(5)
+    io = torch.bfloat16 if is_byte(torch, dtype) else dtype
+    nbuf = 1 if single else 2
+
+    def pool():
+        x = quantize_kv(torch.randn((L, P, KH, TP, D), generator=g, device=dev), dtype,
+                        0.05 if dtype == torch.int8 else None)
+        x[:, 0] = 0
+        return x
+
+    tables = (torch.randperm(P - 1, generator=g, device=dev)[:G * B * 2] + 1).reshape(G, B, 2)
+    tables = tables.to(torch.int32)
+    lens = torch.randint(1, 2 * TP + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    pos = (lens - 1).long()
+    slots = tables[:, torch.arange(B, device=dev), pos // TP].contiguous()  # [G, B]
+    slots[:, 5 % B] = 0
+    offsets = (pos % TP).to(torch.int32)
+    identity = pool_layers is None
+    pl = torch.tensor(list(range(Lk)) if identity else list(pool_layers), dtype=torch.int32,
+                      device=dev)
+    gi = torch.tensor(list(group_index or [0] * Lk), device=dev)
+    pages = slots[gi].contiguous()  # [Lk, B]
+    new = [torch.randn((Lk, B, KH, D), generator=g, device=dev).to(io) for _ in range(nbuf)]
+    kw = {}
+    if dtype == torch.int8:
+        rows = Lk if Lk != L else L  # keyed by kv layer where they differ
+        scales = [0.02 + 0.03 * torch.rand((rows, KH), generator=g, device=dev)
+                  for _ in range(nbuf)]
+        kw = dict(zip(("k_scales", "v_scales"), scales))
+    if single:
+        run = lambda pools: [ops.write_decode_tokens_single(  # noqa: E731
+            pools[0], new[0], pl, pages, offsets, **kw)]
+        plain = lambda pools: [ops.write_decode_tokens_single_plain(  # noqa: E731
+            pools[0], new[0], pl, pages, offsets, **kw)]
+    else:
+        run = lambda pools: ops.write_decode_tokens(*pools, *new, pl, pages, offsets, **kw)  # noqa: E731
+        plain = lambda pools: ops.write_decode_tokens_plain(  # noqa: E731
+            *pools, *new, pl, pages, offsets, **kw)
+    pools = [pool() for _ in range(nbuf)]
+    ref = [p.clone() for p in pools]
+    got, want = run(pools), plain(ref)
+    torch.cuda.synchronize()
+    res = dict(pools_bit_exact=all(_same_bytes(torch, a, b) for a, b in zip(got, want))
+               and all(not p[:, 0].view(torch.uint8).any() for p in got),
+               max_abs_err=0.0 if is_byte(torch, dtype) else max(_err(torch, a, b)
+                                                                 for a, b in zip(got, want)))
+    if identity:  # the rewrite check: the fused kernel's write, then this one
+        fresh = [pool() for _ in range(nbuf)]
+        skw = {}
+        if dtype == torch.int8:
+            skw = dict(k_scales=kw["k_scales"], v_scales=kw.get("v_scales", kw["k_scales"]))
+        for li in range(Lk):
+            if single:  # K5's decode form: 16 heads over the latent pool
+                ops.paged_attention_decode(
+                    torch.randn((B, 16, D), generator=g, device=dev).to(io), fresh[0], None,
+                    tables[0], lens, li, new[0][li, :], None, slots[0], offsets,
+                    mla_v_dim=S["MLA_R"], **skw)
+            else:
+                ops.paged_attention_decode(
+                    torch.randn((B, 4 * KH, D), generator=g, device=dev).to(io), *fresh,
+                    tables[0], lens, li, new[0][li], new[1][li], slots[0], offsets, **skw)
+        before = [p.clone() for p in fresh]
+        run(fresh)
+        torch.cuda.synchronize()
+        res["rewrite_bytes_unchanged"] = all(_same_bytes(torch, a, b)
+                                             for a, b in zip(fresh, before))
+    if not timed:
+        return res
+    it = S["iters"]
+    res["ms"], res["host_ms"] = time_ms(torch, lambda: run(pools), it), \
+        time_ms(torch, lambda: run(pools), it, hold=False)
+    res["plain_ms"] = time_ms(torch, lambda: plain(pools), it)
+    live = int((pages != 0).sum())
+    idx_bytes = 4 * (Lk * B + B + Lk)
+    res["bound_ms"], res["bound_by"] = bound(
+        nbuf * live * KH * D * (new[0].element_size() + pools[0].element_size()) + idx_bytes, 0)
+    if is_byte(torch, dtype):
+        res["library_ms"] = None  # no one PyTorch call quantizes and scatters
+        return res
+    li_idx, b_idx = (pages != 0).nonzero(as_tuple=True)
+    heads = torch.arange(KH, device=dev)
+    idx = (pl[li_idx].long()[:, None], pages[li_idx, b_idx].long()[:, None], heads[None],
+           offsets[b_idx].long()[:, None])
+    vals = [n[li_idx, b_idx].to(dtype) for n in new]  # [live, KH, D] cast values
+    res["library_ms"] = time_ms(
+        torch, lambda: [p.index_put_(idx, v) for p, v in zip(pools, vals)], it)
+    return res
+
+
 def phase_kernels(torch, ops, S, dev):
     import torch.nn.functional as F
 
@@ -1101,6 +1235,39 @@ def phase_kernels(torch, ops, S, dev):
                     for dt in ("bfloat16", "int8", "float8_e4m3fn")
                     for qr in (16, 32, 48, 64))
         + f", float32 x 16: {mla_wave_blocks(dev, torch.float32, 16)}")
+    # K7 and K8, the dp equalizer's token writers, every pool type: K7 at
+    # Llama-3-8B's decode shapes (32 kv layers, KH 8, D 128) with the
+    # rewrite check after K1, and in the hybrid form at Gemma-2-9B's widths
+    # (42 model layers over an arena of 21, layer_in_group, each group's
+    # slot pages, D 256, int8 scales per model layer); K8 at
+    # DeepSeek-V2-Lite's latent (27 layers, KH 1, D 640) with the rewrite
+    # check after K5.  Timed: the bf16 and byte rows, and the hybrid form's
+    # int8 row (the one its dp path runs)
+    from kvcached_tpu_torch.models.llama import LlamaConfig
+    from kvcached_tpu_torch.models.mla import MLAConfig
+
+    l8, m2 = LlamaConfig.llama3_8b(), MLAConfig.deepseek_v2_lite()
+    writers = (
+        ("K7", dict(Lk=l8.num_layers, L=l8.num_layers, KH=l8.num_kv_heads, D=l8.head_dim)),
+        ("K7 d256", dict(Lk=h9.num_layers, L=h9.layers_per_group, KH=KH9, D=D9,
+                         pool_layers=h9.layer_in_group, group_index=h9.group_index)),
+        ("K8", dict(Lk=m2.num_layers, L=m2.num_layers, KH=1, D=S["MLA_D"], single=True)),
+    )
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"), (torch.int8, "int8"),
+                       (torch.float8_e4m3fn, "fp8")):
+        for name, shape in writers:
+            timed = dtype != torch.float32 and (name != "K7 d256" or dtype == torch.int8)
+            r = kernel_tokens_write(torch, ops, dev, S, dtype, timed=timed, **shape)
+            ok = r["pools_bit_exact"] and r.get("rewrite_bytes_unchanged", True)
+            log(f"[kernels] {name} {tag} (Lk={shape['Lk']} over {shape['L']} pool layers, "
+                f"KH={shape['KH']}, D={shape['D']}): pools bit-exact={r['pools_bit_exact']}"
+                + (f", K{'5' if name == 'K8' else '1'}'s fused write then {name} left the "
+                   f"bytes unchanged={r['rewrite_bytes_unchanged']}"
+                   if "rewrite_bytes_unchanged" in r else "")
+                + (" ok" if ok else " FAILED"))
+            require(ok, f"{name} {tag} pool bytes differ: {r}")
+            if timed:
+                rows[name + ("" if dtype == torch.bfloat16 else f" {tag}")] = dict(r, tolerance=0.0)
     for name, r in rows.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"[kernels] {name}: {r['ms']:.4f} ms on the device, {r['host_ms']:.4f} ms a "
@@ -1392,12 +1559,13 @@ def _set_limit(name, nbytes):
 
 
 def phase_elastic(torch, cfg, params, S, dev, rehearse, tag="elastic", kv_dtype=None,
-                  group=0):
+                  group=0, mesh=None):
     """GREW/SHRANK/CORRECT: a limit written from another process on layer
     group ``group``'s segment (``<ipc>_g<group>`` past group 0) cuts that
     group's capacity mid-run and raises it again; the other groups keep
     their limits, and the outputs stay md5-identical to an unconstrained
-    run."""
+    run.  ``mesh``: both engines serve on its dp replicas (one limit plane
+    for all of them)."""
     import numpy as np
 
     from kvcached_tpu_torch.engine import EngineConfig, LLMEngine, SamplingParams
@@ -1412,7 +1580,7 @@ def phase_elastic(torch, cfg, params, S, dev, rehearse, tag="elastic", kv_dtype=
             max_batch=8, max_model_len=4 * B0, page_tokens=TP, decode_horizon=8,
             prefill_buckets=(B0,), num_pages=160 if not rehearse else 96,
             kv_dtype=kv_dtype or cfg.dtype, enable_prefix_caching=False, prefill_batch=1,
-            ipc_name=ipc_name), params=params, device=dev)
+            ipc_name=ipc_name), params=params, device=dev, mesh=mesh)
 
     rng = np.random.default_rng(2)
     sp = SamplingParams(max_new_tokens=S["max_new"])
@@ -1485,6 +1653,214 @@ def phase_elastic(torch, cfg, params, S, dev, rehearse, tag="elastic", kv_dtype=
 
 
 # ---------------------------------------------------------------------------
+# 12. dp replicas on the one card (parts run inside phases 4, 7, 9, 8, 11)
+# ---------------------------------------------------------------------------
+
+
+def dp_mix(S, V, new):
+    """Phase 4's requests, all at once, every other one stopping at a
+    quarter of ``new`` tokens: rows finish early and the batch shifts, so
+    rows move from replica 1 to replica 0."""
+    import dataclasses
+
+    _, _, wave1, wave2 = request_mix(S, V, new)
+    return [(p, dataclasses.replace(sp, max_new_tokens=new if i % 2 else max(new // 4, 2)))
+            for i, (p, sp) in enumerate(wave1 + wave2)]
+
+
+def staggered(prompts, short, long):
+    """Greedy requests over ``prompts`` (four), the first two stopping at
+    ``short`` tokens and the others at ``long``: at max_batch 4 the
+    reference's dp regression pattern (rows 0-1 finish, rows 2-3 move)."""
+    from kvcached_tpu_torch.engine import SamplingParams
+
+    return [(p, SamplingParams(max_new_tokens=short if i < 2 else long))
+            for i, p in enumerate(prompts)]
+
+
+def prefix_top2(torch, cfg, params, S, dev, prefix):
+    """(top two logits, their ids) after ``prefix``: one prefill through the
+    kernels on a fresh pool of the model's dtype (a hybrid model through
+    :func:`hybrid_logits`)."""
+    from kvcached_tpu_torch.models.hybrid import HybridConfig
+
+    if isinstance(cfg, HybridConfig):
+        lg = hybrid_logits(torch, cfg, params, S, dev, False, len(prefix), prompt=prefix)[0]
+    else:
+        TP, n = S["TP"], len(prefix)
+        pages = -(-n // TP)
+        kp = torch.zeros((cfg.num_layers, pages + 1, cfg.num_kv_heads, TP, cfg.head_dim),
+                         dtype=cfg.tdtype, device=dev)
+        vp = None if getattr(cfg, "num_kv_buffers", 2) == 1 else torch.zeros_like(kp)
+        toks = torch.zeros(pages * TP, dtype=torch.int32, device=dev)
+        toks[:n] = torch.tensor(prefix, dtype=torch.int32, device=dev)
+        table = torch.arange(1, pages + 1, dtype=torch.int32, device=dev)
+        pos = torch.arange(pages * TP, dtype=torch.int32, device=dev)
+        lg = model_steps(cfg)[0](params, cfg, toks, pos, kp, vp, table, table, 0, n)[0]
+    top = torch.topk(lg.float().reshape(-1), 2)
+    return [round(v, 6) for v in top.values.tolist()], top.indices.tolist()
+
+
+def dp_serve(torch, ops, cfg, params, S, dev, rehearse, *, tag, requests, kv_dtype=None,
+             max_batch=8, num_pages=None, spec=False, max_len=None, exact=False,
+             profile=False):
+    """``requests`` served by the same engine at dp = 1 and at dp = 2
+    (``make_mesh(dp=2, devices=[dev, dev])``: both replicas on the one card,
+    sharing the weights, each with its own pool), the launch counters
+    zeroed just before the dp = 2 run and read just after.  Requires that
+    rows moved between the replicas and that the replicas' pools are equal
+    byte for byte, and, with ``exact``, the tokens equal to dp = 1's and
+    every slot a request wrote within 1e-4 of dp = 1's (:func:`written_kv`:
+    the two engines' physical pages may differ, since the page allocators
+    map pages from threads of their own).  Logs the share of tokens equal to dp =
+    1's and, where they part, the first parting token and the top two
+    logits there, and both runs' decode tok/s; ``profile``: one decode
+    dispatch of each engine under torch.profiler (:func:`profile_decode`).
+    Returns the dp = 2 run's launches by pool type."""
+    from kvcached_tpu_torch.engine import EngineConfig, LLMEngine
+    from kvcached_tpu_torch.parallel import make_mesh
+
+    def make(mesh):
+        return LLMEngine(cfg, EngineConfig(
+            max_batch=max_batch, max_model_len=max_len or (2048 if not rehearse else 256),
+            page_tokens=S["TP"], decode_horizon=8, prefill_buckets=S["buckets"],
+            num_pages=num_pages or (320 if not rehearse else 96),
+            kv_dtype=kv_dtype or cfg.dtype, prefill_batch=4, spec_decode=spec,
+            spec_exact=spec and exact), params=params, device=dev, mesh=mesh)
+
+    t0 = time.perf_counter()
+    one = make(None)
+    pages1 = track_pages(one)
+    want = serve(one, requests)
+    two = make(make_mesh(dp=2, devices=[dev, dev]))
+    pages2 = track_pages(two)
+    ops.reset_launch_counts()  # --- the dp path starts here
+    got = serve(two, requests)
+    by_dtype = ops.launch_counts_by_dtype()  # --- and ends here
+    m, m1 = two.kv_metrics(), one.kv_metrics()
+    tok_s = [x["throughput"]["decode_tokens"] / max(x["throughput"]["decode_seconds"], 1e-9)
+             for x in (m1, m)]
+    reps = [[p for p in (r.k_pools, r.v_pools) if p is not None] for r in two.replicas]
+    identical = all(_same_bytes(torch, a, b) for a, b in zip(*reps))
+    pool_err = None
+    if not is_byte(torch, one.k_pools.dtype):
+        pool_err = max(_err(torch, written_kv(torch, p1, pages1, S["TP"]),
+                            written_kv(torch, p2, pages2, S["TP"]))
+                       for p1, p2 in zip((one.k_pools, one.v_pools), reps[0]) if p1 is not None)
+    profs = []
+    if profile and not rehearse:
+        rand = request_mix(S, cfg.vocab_size, S["max_new"])[0]
+        from kvcached_tpu_torch.engine import SamplingParams
+
+        profs = [profile_decode(torch, e, rand, SamplingParams(max_new_tokens=S["max_new"]))
+                 for e in (one, two)]
+    one.shutdown()
+    two.shutdown()
+    del one, two, reps
+    same = sum(a == b for w, o in zip(want, got) for a, b in zip(w, o))
+    total = sum(len(w) for w in want)
+    parts = ""
+    split = next((r for r, (w, o) in enumerate(zip(want, got)) if w != o), None)
+    if split is not None:
+        w, o = want[split], got[split]
+        j = next(i for i, (a, b) in enumerate(zip(w, o)) if a != b)
+        vals, ids = prefix_top2(torch, cfg, params, S, dev, requests[split][0] + w[:j])
+        parts = (f"; request {split} parts first, at token {j} (dp = 1 {w[j]}, dp = 2 {o[j]}), "
+                 f"where the top two logits are {vals} (ids {ids}), {vals[0] - vals[1]:.3e} "
+                 f"apart")
+    log(f"[dp] {tag}, {cfg.dtype} model, {kv_dtype or cfg.dtype} pool, {len(requests)} requests, "
+        f"max_batch {max_batch}, spec_decode={spec}: dp = 2 (both replicas on {dev}) vs dp = 1 "
+        f"in {time.perf_counter() - t0:.1f} s; rows moved between replicas {m['dp']['row_moves']}"
+        f"; replicas' pools byte-identical {identical}"
+        + (f"; written slots vs dp = 1's max abs {pool_err:.3e}" if pool_err is not None else "")
+        + f"; tokens equal to dp = 1 {same}/{total} ({same / max(total, 1):.4f}){parts}; "
+        f"decode {tok_s[1]:.1f} tok/s at dp = 2, {tok_s[0]:.1f} at dp = 1; launches by pool type "
+        f"{json.dumps(by_dtype)}")
+    for dp, prof in zip((1, 2), profs):
+        log(f"[dp] {tag}: one decode dispatch at dp = {dp} ({prof['rows']} rows x "
+            f"{prof['steps']} steps) under torch.profiler: wall {prof['wall_ms']:.2f} ms, device "
+            f"busy {prof['device_ms']:.2f} ms ({100 * prof['device_ms'] / prof['wall_ms']:.1f}%), "
+            f"top kernels {json.dumps(prof['top'])}")
+    require(m["dp"]["row_moves"] > 0, f"dp {tag}: no row moved between replicas")
+    require(identical, f"dp {tag}: the replicas' pools differ")
+    if exact:
+        require(got == want, f"dp {tag}: tokens differ from dp = 1")
+        require(pool_err is None or pool_err <= F32_TOL,
+                f"dp {tag}: written slots off dp = 1's by {pool_err}")
+    return by_dtype
+
+
+def phase_dp(torch, ops, cfg, params, S, dev, rehearse):
+    """(a) Llama-3-8B at full width, bf16, weights already loaded by phase
+    4: phase 4's mix with staggered lengths (:func:`dp_mix`) at dp = 2 on
+    the one card; K1, K2, K3 and K7 each > 0 over the dp = 2 run.  Returns
+    its launches by kernel row."""
+    by = dp_serve(torch, ops, cfg, params, S, dev, rehearse, tag="(a)",
+                  requests=dp_mix(S, cfg.vocab_size, S["max_new"]), profile=True)
+    for k in ("K1", "K2", "K3"):
+        dp_count(by, k, cfg.dtype, rehearse, "(a)")
+    return {"K7": dp_count(by, "K7", cfg.dtype, rehearse, "(a)")}
+
+
+def phase_dp_bytes(torch, ops, cfg, params, S, dev, rehearse):
+    """(c) the 8B's mix with staggered lengths on an int8 and an e4m3 pool at
+    dp = 2 (K7 of each mode > 0, replicas byte-identical), then
+    GREW/SHRANK/CORRECT through :func:`phase_elastic` on a dp = 2 engine
+    over an int8 pool.  Returns the launches by kernel row."""
+    from kvcached_tpu_torch.parallel import make_mesh
+
+    counts = {}
+    for mode, mt in (("int8", "int8"), ("float8_e4m3fn", "fp8")):
+        by = dp_serve(torch, ops, cfg, params, S, dev, rehearse, tag="(c)",
+                      requests=dp_mix(S, cfg.vocab_size, S["max_new"]), kv_dtype=mode,
+                      num_pages=640 if not rehearse else 192)
+        counts[f"K7 {mt}"] = dp_count(by, "K7", mode, rehearse, f"(c) {mode}")
+    phase_elastic(torch, cfg, params, S, dev, rehearse, tag="dp (c) elastic int8",
+                  kv_dtype="int8", mesh=make_mesh(dp=2, devices=[dev, dev]))
+    return counts
+
+
+def track_pages(eng):
+    """{request id: (each layer group's physical pages, token count)},
+    recorded as each request finishes."""
+    pages = {}
+    finish = eng._finish_seq
+
+    def record(seq):
+        pages[seq.req.req_id] = (
+            [[None if b is None else int(eng.managers[g].page_allocator.page_table[b])
+              for b in row] for g, row in enumerate(seq.blocks_g)], len(seq.tokens))
+        finish(seq)
+
+    eng._finish_seq = record
+    return pages
+
+
+def written_kv(torch, pool, pages, TP):
+    """The entries every request wrote (prompt and fed tokens: positions
+    below its length less one), in request order, gathered from ``pool``
+    through the pages :func:`track_pages` recorded: [L, slots, KH, D].
+    Pages a sliding group freed are skipped."""
+    idx = []
+    for rid in sorted(pages):
+        groups, n = pages[rid]
+        for row in groups:
+            idx += [(pg, s) for j, pg in enumerate(row) if pg is not None
+                    for s in range(TP) if j * TP + s < n - 1]
+    pg, sl = (torch.tensor(x, device=pool.device) for x in zip(*idx))
+    return pool[:, pg, :, sl]
+
+
+def dp_count(by_dtype, kernel, mode, rehearse, tag):
+    """Launches of ``kernel`` in pool mode ``mode`` (``"int8+d256"``...),
+    required > 0 on the card."""
+    n = by_dtype[kernel].get(mode, 0)
+    if not rehearse:
+        require(n > 0, f"{kernel} ({mode}) was never launched on the dp {tag} path")
+    return n
+
+
+# ---------------------------------------------------------------------------
 # 7. speculative decoding at full width
 # ---------------------------------------------------------------------------
 
@@ -1522,6 +1898,19 @@ def phase_spec(torch, ops, cfg, params, S, dev, rehearse):
         m = eng.kv_metrics().get("spec")
         eng.shutdown()
         del eng
+    # dp (b): the float32 weights at dp = 2, TF32 off (phase 3), without and
+    # with spec decode: greedy tokens and pools those of dp = 1
+    dp_k7 = {}
+    for spec in (False, True):
+        by = dp_serve(torch, ops, c32, p32, S, dev, rehearse, tag="(b)", max_batch=4,
+                      num_pages=64, spec=spec, exact=True,
+                      requests=staggered(prompts, S["spec_new_exact"] // 4,
+                                         S["spec_new_exact"]))
+        dp_k7[spec] = dp_count(by, "K7", "float32", rehearse, "(b)")
+        if spec:
+            dp_count(by, "K4", "float32", rehearse, "(b)")
+    log(f"[dp] (b) K7 launches (float32 pool) without / with spec decode: {dp_k7[False]} / "
+        f"{dp_k7[True]}")
     del p32
     same = outs[True] == outs[False]
     log(f"[spec] (a) {S['model']} float32, {len(prompts)} requests x "
@@ -1893,6 +2282,14 @@ def phase_mla(torch, ops, S, dev, rehearse):
             counts[k] = got[k]
             if not rehearse:
                 require(got[k] > 0, f"{k} was never launched on the MLA path")
+    # dp (d): the mix with staggered lengths on bf16, int8 and e4m3 latent
+    # pools at dp = 2 (K8 of each mode > 0, replicas byte-identical)
+    for mode, key in ((cfg.dtype, "K8"), ("int8", "K8 int8"), ("float8_e4m3fn", "K8 fp8")):
+        byte = mode != cfg.dtype
+        by = dp_serve(torch, ops, cfg, params, S, dev, rehearse, tag="(d) MLA",
+                      requests=dp_mix(S, V, new), kv_dtype=mode,
+                      num_pages=(640 if byte else 320) if not rehearse else 96)
+        counts[key] = dp_count(by, "K8", mode, rehearse, "(d)")
     byte_counts, byte_tok_s = phase_byte_pools(
         torch, ops, cfg, params, S, dev, rehearse, tag="mla c", mix_kernels=("K5", "K6", "K3m"),
         spec_kernel="K5v", logits_tol=MLA_BYTE_LOGITS_TOL)
@@ -1911,6 +2308,13 @@ def phase_mla(torch, ops, S, dev, rehearse):
 
     c32, p32 = float32_copy(cfg, params)
     spec_exact(torch, c32, p32, S, dev, rehearse, tag="[mla] (e)", num_pages=64)
+    # dp (d) at float32: greedy tokens and pools those of dp = 1
+    rand, B0 = request_mix(S, V, new)[0], max(S["buckets"])
+    by = dp_serve(torch, ops, c32, p32, S, dev, rehearse, tag="(d) MLA", max_batch=4,
+                  num_pages=64, exact=True,
+                  requests=staggered([rand(B0 // n) for n in (4, 3, 8, 5)],
+                                     S["spec_new_exact"] // 4, S["spec_new_exact"]))
+    dp_count(by, "K8", "float32", rehearse, "(d)")
     del p32
     phase_elastic(torch, cfg, params, S, dev, rehearse, tag="mla (f) elastic")
     log(f"[mla] phase 8 in {time.perf_counter() - t_phase:.1f} s")
@@ -2032,7 +2436,7 @@ def spec_exact(torch, cfg, params, S, dev, rehearse, *, tag, num_pages=128):
 
 
 def phase_hybrid(torch, ops, S, dev, rehearse, *, model=None, pages=None, tag="hybrid",
-                 phase="10"):
+                 phase="10", dp=False):
     """The hybrid family (two layer groups, sliding and full, on one shared
     arena) at ``model``'s widths (``hybrid_config``: Gemma-2-27B in phase
     10, Gemma-2-9B, head_dim 256, in phase 11) on ``pages`` bf16 arena
@@ -2057,9 +2461,13 @@ def phase_hybrid(torch, ops, S, dev, rehearse, *, model=None, pages=None, tag="h
     float32 logits gate and spec tokens, the elastic gate on int8 through
     ``_g1``).  (d) and (f)'s float32 part run right after (a), on its
     model: beside the 46-layer bf16 model its 17 GiB would not fit.  ``tag``
-    and ``phase`` name the log lines.  Returns (launches by row of the
-    kernel table, tok/s); the rows of a head_dim other than 128 carry it
-    (``"K1 d256"``), whose launches count under ``"+d256"``."""
+    and ``phase`` name the log lines.  ``dp``: after (a), dp (e) on its
+    4-layer model, the requests of :func:`staggered` at dp = 2 on the one
+    card: on a float32 arena the tokens and pools of dp = 1, on an int8
+    arena identical replicas (K7 in its group form, per-model-layer
+    scales, > 0).  Returns (launches by row of the kernel table, tok/s);
+    the rows of a head_dim other than 128 carry it (``"K1 d256"``), whose
+    launches count under ``"+d256"``."""
     import math
 
     from kvcached_tpu_torch.engine import EngineConfig, LLMEngine
@@ -2098,6 +2506,16 @@ def phase_hybrid(torch, ops, S, dev, rehearse, *, model=None, pages=None, tag="h
         torch, ops, c32, p32, S, dev, rehearse, tag=f"{tag} f",
         mix_kernels=mix_kernels, spec_kernel=f"K4+softcap{hd}",
         logits_tol=LOGITS_REL_TOL, f32_model=lambda: (c32, p32), parts="3", spec_ties=True)
+    dp_k7 = {}
+    if dp:
+        rand, B0 = request_mix(S, V, new)[0], max(S["buckets"])
+        reqs = staggered([rand(B0 // n) for n in (4, 3, 8, 5)], S["spec_new_exact"] // 4,
+                         S["spec_new_exact"])
+        for mode in ("float32", "int8"):
+            by = dp_serve(torch, ops, c32, p32, S, dev, rehearse, tag=f"(e) {tag}",
+                          requests=reqs, kv_dtype=mode, max_batch=4, num_pages=128,
+                          max_len=S["hyb_max_len"], exact=mode == "float32")
+            dp_k7[mode] = dp_count(by, "K7", f"{mode}{hd}", rehearse, f"(e) {tag}")
     del p32
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -2251,6 +2669,8 @@ def phase_hybrid(torch, ops, S, dev, rehearse, *, model=None, pages=None, tag="h
             for k, key in zip(("K1", "K2", "K3"), mix_kernels):
                 hyb[f"{row(k)} {mt}"] = mix_counts[f"{key} {mt}"]
     tok_s.update(byte_tok_s)
+    if dp:
+        hyb[f"{row('K7')} int8" if hd else "K7 int8"] = dp_k7["int8"]
     if not rehearse:
         for k, n in hyb.items():
             require(n > 0, f"{k} was never launched on the {tag} path")
@@ -2370,6 +2790,7 @@ def main(argv) -> int:
         log("[done] kernels only: no result")
         return 4
     cfg, params, counts, tok_s = phase_engine(torch, ops, S, dev, rehearse)
+    counts.update(phase_dp(torch, ops, cfg, params, S, dev, rehearse))
     phase_elastic(torch, cfg, params, S, dev, rehearse)
     spec_counts, spec_tok_s = phase_spec(torch, ops, cfg, params, S, dev, rehearse)
     counts["K4"] = spec_counts["K4"]
@@ -2377,6 +2798,7 @@ def main(argv) -> int:
         torch, ops, cfg, params, S, dev, rehearse, tag="byte ", mix_kernels=("K1", "K2", "K3"),
         spec_kernel="K4", logits_tol=LOGITS_REL_TOL)
     counts.update(byte_counts)
+    counts.update(phase_dp_bytes(torch, ops, cfg, params, S, dev, rehearse))
     del params
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -2389,10 +2811,11 @@ def main(argv) -> int:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     hyb9_counts, hyb9_tok_s = phase_hybrid(torch, ops, S, dev, rehearse, model=S["hyb9_model"],
-                                           pages=S["hyb9_pages"], tag="gemma9", phase="11")
+                                           pages=S["hyb9_pages"], tag="gemma9", phase="11",
+                                           dp=True)
     counts.update(hyb9_counts)
     real = phase_real_weights(torch, dev, rehearse)
-    log(f"[done] phases 3-11 in {time.perf_counter() - t0:.1f} s; engine tok/s "
+    log(f"[done] phases 3-12 in {time.perf_counter() - t0:.1f} s; engine tok/s "
         f"{json.dumps(tok_s)}; spec decode tok/s {json.dumps(spec_tok_s)}; byte pools "
         f"tok/s {json.dumps(byte_tok_s)}; MLA tok/s {json.dumps(mla_tok_s)}; hybrid tok/s "
         f"{json.dumps(hyb_tok_s)}; Gemma-2-9B tok/s {json.dumps(hyb9_tok_s)}; winadd exact "
@@ -2420,11 +2843,16 @@ def main(argv) -> int:
                "kvcached_tpu/ops/paged_attention.py:1299"),
         "K3m": ("paged_prefill_attention_batch (MLA mode)", "mla_attend.cu",
                 "kvcached_tpu/ops/paged_prefill.py:344"),
+        "K7": ("write_decode_tokens (the dp replica equalizer)", "decode_tokens_write.cu",
+               "kvcached_tpu/ops/paged_attention.py:1458"),
+        "K8": ("write_decode_tokens_single (the dp replica equalizer, MLA latent pool)",
+               "decode_tokens_write.cu", "kvcached_tpu/ops/paged_attention.py:1585"),
     }
     # the int8 and e4m3 modes of K1-K4 and of the MLA kernels: their
-    # launches on phase 9's and phase 8 (c)'s paths (K1r is on no engine path)
+    # launches on phase 9's and phase 8 (c)'s paths (K1r is on no engine
+    # path); of K7 and K8 on the dp parts (c) and (d)
     modes = {"int8": "int8", "fp8": "float8_e4m3fn"}
-    for k in ("K1", "K1r", "K2", "K3", "K4", "K5", "K5v", "K6", "K3m"):
+    for k in ("K1", "K1r", "K2", "K3", "K4", "K5", "K5v", "K6", "K3m", "K7", "K8"):
         for tag, mode in modes.items():
             fn, src, replaces = meta[k]
             meta[f"{k} {tag}"] = (f"{fn}, {mode} pool", src, replaces)
@@ -2449,6 +2877,10 @@ def main(argv) -> int:
         for tag, mode in modes.items():
             meta[f"{k} d256 {tag}"] = (f"{fn}{capped}, head_dim 256, {mode} pool", src, replaces)
             counts.setdefault(f"{k} d256 {tag}", 0)
+    # K7's hybrid form at head_dim 256 on an int8 arena: launches on dp (e)
+    fn, src, replaces = meta["K7"]
+    meta["K7 d256 int8"] = (f"{fn}, hybrid form (layer_in_group, per-model-layer scales), "
+                            "head_dim 256, int8 pool", src, replaces)
     kernels = []
     for k, (fn, src, replaces) in meta.items():
         r = rows[k]

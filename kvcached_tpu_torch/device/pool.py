@@ -182,12 +182,14 @@ class DevicePagePool:
 
     # -- device tensors -----------------------------------------------------
 
-    def allocate_arrays(self) -> tuple[torch.Tensor, torch.Tensor | None]:
-        """Create the zero-filled K (and V) pool tensors on the device."""
+    def allocate_arrays(self, device=None) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """Create the zero-filled K (and V) pool tensors on the pool's device,
+        or on ``device`` (another dp replica's copy of the same pages)."""
         shape = self.spec.kv_shape
-        k = torch.zeros(shape, dtype=self.spec.dtype, device=self.device)
+        device = self.device if device is None else resolve_device(device)
+        k = torch.zeros(shape, dtype=self.spec.dtype, device=device)
         v = (
-            torch.zeros(shape, dtype=self.spec.dtype, device=self.device)
+            torch.zeros(shape, dtype=self.spec.dtype, device=device)
             if self.spec.num_kv_buffers == 2
             else None
         )
@@ -197,7 +199,7 @@ class DevicePagePool:
             self.spec.page_bytes,
             self.spec.num_pages * self.spec.page_bytes / 1e9,
             self.spec.dtype,
-            self.device,
+            device,
         )
         return k, v
 

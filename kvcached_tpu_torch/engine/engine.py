@@ -33,8 +33,20 @@ Port of the single-device subset of ``kvcached_tpu/engine/engine.py``:
   groups come per model layer (``[num_layers, KH]``).  The prefix cache is
   off for several groups.
 
-The mesh, pipeline-parallel and stateful paths of the JAX engine, and layer
-groups of unequal size (ROADMAP A11b), are not ported yet.
+- **dp replicas** (``mesh=make_mesh(dp=...)``): one host scheduler, one
+  page allocator and one shm limit plane, and on each replica's device its
+  own copy of the pool (page ids are the same in every copy).  Prefill runs
+  on every replica into its own pool.  A decode or verify forward splits
+  the batch rows over the replicas, each writing only its rows through the
+  fused kernel; then every replica stores every row's tokens
+  (:func:`~kvcached_tpu_torch.ops.write_decode_tokens`, K7, or K8 for the
+  MLA latent pool), so the copies stay bit-identical and a row may move to
+  another replica when a neighbour finishes.  A device may host several
+  replicas.
+
+The tp and pipeline-parallel meshes and the stateful paths of the JAX
+engine, and layer groups of unequal size (ROADMAP A11b), are not ported
+yet.
 
 Sampling draws from ``torch.Generator`` s seeded from the engine step (and
 the request seed for first tokens), so an identical engine history
@@ -58,6 +70,8 @@ from ..device.pool import DevicePagePool, PoolSpec, hbm_free_bytes, resolve_devi
 from ..kv_cache_manager import KVCacheManager
 from ..logging_utils import get_kvcached_logger
 from ..models.adapter import as_adapter
+from ..ops.paged_attention import write_decode_tokens, write_decode_tokens_single
+from ..parallel.mesh import Mesh, check_mesh
 from .prefix_cache import PrefixCache, page_keys
 
 logger = get_kvcached_logger(__name__)
@@ -74,6 +88,14 @@ class SamplingParams:
     #: stop STRINGS: generation ends when the decoded output contains one;
     #: the returned text is truncated before it.  Needs a tokenizer.
     stop: tuple[str, ...] = ()
+
+
+def _params_to(params, device):
+    """A copy of the model's parameters on ``device`` (another dp
+    replica's)."""
+    return type(params)(params.cfg, params.embed.to(device),
+                        {k: v.to(device) for k, v in params.layers.items()},
+                        params.final_norm.to(device), params.lm_head.to(device))
 
 
 def _generator(device, *seeds: int) -> torch.Generator:
@@ -219,6 +241,7 @@ class Sequence:
         self.num_prefilled = 0
         self.stop_hit = False  # a stop STRING fired
         self.output_text: str | None = None
+        self.replica: int | None = None  # dp replica of its last decode dispatch
 
     @property
     def prompt_len(self) -> int:
@@ -237,6 +260,25 @@ class Sequence:
             and self.num_generated > 0
             and self.tokens[-1] in sp.stop_token_ids
         )
+
+
+@dataclass
+class Replica:
+    """One dp replica: its device, the model's parameters there, its own
+    copy of the pool and its int8 scales (``quant_scales``, or None), and
+    the pool layer of each kv layer for the equalizer (``pool_layers``)."""
+
+    device: torch.device
+    params: object
+    k_pools: torch.Tensor
+    v_pools: torch.Tensor | None
+    quant_scales: tuple | None
+    pool_layers: torch.Tensor
+
+    @property
+    def scales_kw(self) -> dict:
+        """The model steps' ``quant_scales`` keyword, when scales are set."""
+        return {} if self.quant_scales is None else {"quant_scales": self.quant_scales}
 
 
 @dataclass
@@ -289,7 +331,8 @@ class EngineConfig:
 
 
 class LLMEngine:
-    """Single-model serving engine on one device."""
+    """Single-model serving engine on one device, or on the dp replicas of
+    a mesh."""
 
     _ids = itertools.count()
 
@@ -302,11 +345,18 @@ class LLMEngine:
         seed: int = 0,
         device=None,
         tokenizer=None,
+        mesh: Mesh | None = None,
     ):
         """``device`` defaults to the card; pass ``device="cpu"`` to run the
         kernels' plain versions on the CPU.  ``params``: a
         :class:`~kvcached_tpu_torch.models.llama.LlamaModel` on that device
-        (random-initialized from ``seed`` when None)."""
+        (random-initialized from ``seed`` when None).
+
+        ``mesh`` (:func:`~kvcached_tpu_torch.parallel.make_mesh`, tp = 1):
+        serve on its dp replicas, the engine's device being the first's.
+        Each replica takes the model's parameters (the same tensors on the
+        model's device, a copy on another) and its own pool; ``max_batch``
+        must divide into the replicas."""
         self.adapter = as_adapter(model_cfg)
         self.model_cfg = model_cfg
         self.tokenizer = tokenizer
@@ -343,12 +393,22 @@ class LLMEngine:
         #: leading axis of the page rows the model steps take: none for one
         #: group (2-D tables), G for several
         self._groups = (self.num_groups,) if self.num_groups > 1 else ()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.dp = 1
+            devices = [resolve_device(device)]
+        else:
+            self.dp = check_mesh(mesh)
+            if ec.max_batch % self.dp:
+                raise ValueError(f"max_batch={ec.max_batch} not divisible by dp={self.dp}")
+            devices = mesh.replica_devices
+            if device is not None and resolve_device(device) != devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first device {devices[0]}")
+        self.device = devices[0]
         if params is None:
             params = self.adapter.init_params(seed=seed, device=self.device)
         elif params.device != self.device:
             raise ValueError(f"params live on {params.device}, engine on {self.device}")
-        self.params = params
 
         self.kv_cfg = KVConfig(
             num_layers=(self.adapter.layers_per_group if self.num_groups > 1
@@ -363,24 +423,37 @@ class LLMEngine:
         if ec.num_pages is not None:
             spec = PoolSpec.from_config(self.kv_cfg, num_pages=ec.num_pages)
         else:
-            budget = hbm_free_bytes(self.device)
-            if budget is None:
-                budget = 2 << 30  # CPU: 2 GB worth of pages
+            # each replica's share of its device's free memory: replicas
+            # that share a card split its budget
+            budgets = [hbm_free_bytes(d) for d in devices]
+            budget = min(((2 << 30) if b is None else b) // devices.count(d)  # CPU: 2 GB
+                         for b, d in zip(budgets, devices))
             spec = PoolSpec.from_config(
                 self.kv_cfg, hbm_budget_bytes=int(budget * ec.hbm_utilization))
         self.pool = DevicePagePool(spec, device=self.device)
-        self.k_pools, self.v_pools = self.pool.allocate_arrays()
-        #: int8 pools: per-(layer, kv head) dequantization scales [L, KH]
-        #: for K and V, each ``kv_scale`` until set_kv_scales(); the MLA
-        #: latent pool has one kv head, and its K scales serve the values;
-        #: layer groups take them per model layer, and each group's steps
-        #: its layers' rows
-        self.quant_scales = None
-        if ec.kv_dtype == "int8":
-            shape = self._scales_shape
-            self.quant_scales = tuple(
-                torch.full(shape, ec.kv_scale, dtype=torch.float32, device=self.device)
-                for _ in range(2))
+        # the pool layer of each kv layer, for the equalizer: the identity,
+        # or each model layer's arena layer for layer groups; and the group
+        # whose slot pages each kv layer writes through
+        cfg = self.adapter.cfg
+        L = self.adapter.num_layers
+        pool_layers = list(cfg.layer_in_group) if self.num_groups > 1 else list(range(L))
+        self._eq_groups = torch.tensor(
+            list(cfg.group_index) if self.num_groups > 1 else [0] * L, device=self.device)
+        #: the dp replicas (one without a mesh).  int8 pools: per-(layer,
+        #: kv head) dequantization scales [L, KH] for K and V, each
+        #: ``kv_scale`` until set_kv_scales(); the MLA latent pool has one
+        #: kv head, and its K scales serve the values; layer groups take
+        #: them per model layer, and each group's steps its layers' rows
+        self.replicas: list[Replica] = []
+        for dev in devices:
+            scales = None
+            if ec.kv_dtype == "int8":
+                scales = tuple(torch.full(self._scales_shape, ec.kv_scale, dtype=torch.float32,
+                                          device=dev) for _ in range(2))
+            self.replicas.append(Replica(
+                dev, params if dev == self.device else _params_to(params, dev),
+                *self.pool.allocate_arrays(device=dev), scales,
+                torch.tensor(pool_layers, dtype=torch.int32, device=dev)))
         # one manager per layer group over the same pool: pages fungible
         # across groups, accounting and limits (shm segment _g<id>) per group
         self.managers = [
@@ -423,6 +496,24 @@ class LLMEngine:
         self._spec_ema: float | None = None
         self._spec_gamma_cur = ec.spec_gamma
         self._spec_cooldown = 0
+        self._row_moves = 0  # rows served by another replica than before
+
+    # replica 0's parameters, pools and scales: the engine's own on one device
+    @property
+    def params(self):
+        return self.replicas[0].params
+
+    @property
+    def k_pools(self) -> torch.Tensor:
+        return self.replicas[0].k_pools
+
+    @property
+    def v_pools(self) -> torch.Tensor | None:
+        return self.replicas[0].v_pools
+
+    @property
+    def quant_scales(self) -> tuple | None:
+        return self.replicas[0].quant_scales
 
     def _stable_namespace(self) -> str:
         """Prefix-cache namespace: model config + kv config + a weights
@@ -444,25 +535,21 @@ class LLMEngine:
     def set_kv_scales(self, k_scales, v_scales) -> None:
         """int8 KV: install per-(layer, kv head) dequantization scales,
         [L, KH] float32 each (L: arena layers, or model layers for layer
-        groups); the next step uses them.  Raises ValueError on any other
-        shape."""
+        groups), in every dp replica; the next step uses them.  Raises
+        ValueError on any other shape."""
         want = self._scales_shape
-        ks, vs = (torch.as_tensor(np.asarray(a), dtype=torch.float32).to(self.device)
+        ks, vs = (torch.as_tensor(np.asarray(a), dtype=torch.float32)
                   for a in (k_scales, v_scales))
         if tuple(ks.shape) != want or tuple(vs.shape) != want:
             what = "model" if self.num_groups > 1 else "arena"
             raise ValueError(
                 f"set_kv_scales: expected shape {want} ({what} layers x kv heads), "
                 f"got k={tuple(ks.shape)} v={tuple(vs.shape)}")
-        self.quant_scales = (ks, vs)
+        for rep in self.replicas:
+            rep.quant_scales = (ks.to(rep.device), vs.to(rep.device))
 
-    @property
-    def _scales_kw(self) -> dict:
-        """The model steps' ``quant_scales`` keyword, when scales are set."""
-        return {} if self.quant_scales is None else {"quant_scales": self.quant_scales}
-
-    def _dev(self, a, dtype=torch.int32) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+    def _dev(self, a, dtype=torch.int32, device=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype).to(device or self.device)
 
     # ------------------------------------------------------------- requests
 
@@ -692,11 +779,8 @@ class LLMEngine:
         n_real = -(-this_len // P)
         chunk_pages = np.zeros(phys.shape[:-1] + (T // P,), np.int32)
         chunk_pages[..., :n_real] = phys[..., start_page : start_page + n_real]
-        logits, _, _ = self.adapter.prefill_step(
-            self.params, self._dev(tokens), self._dev(positions),
-            self.k_pools, self.v_pools, self._dev(chunk_pages),
-            self._dev(phys), q_start, this_len, **self._scales_kw,
-        )
+        logits = self._prefill_all(self.adapter.prefill_step, tokens, positions,
+                                   chunk_pages, phys, q_start, this_len)
         seq.num_prefilled = q_start + this_len
         if seq.num_prefilled < plen:
             logits.sum().item()  # finish the device work inside the timing
@@ -762,12 +846,8 @@ class LLMEngine:
             true_lens[i] = this_len
         self._pb_dispatches += 1
         self._pb_prompts += N
-        logits, _, _ = self.adapter.prefill_batch_step(
-            self.params, *map(self._dev, (tokens, positions)),
-            self.k_pools, self.v_pools,
-            *map(self._dev, (chunk_pages, page_tables, q_starts, true_lens)),
-            **self._scales_kw,
-        )
+        logits = self._prefill_all(self.adapter.prefill_batch_step, tokens, positions,
+                                   chunk_pages, page_tables, q_starts, true_lens)
         firsts = torch.argmax(logits, dim=-1).cpu().numpy()
         for i, seq in enumerate(seqs):
             if seq.req.sampling.temperature > 0:
@@ -780,6 +860,71 @@ class LLMEngine:
             self._check_stops(seq)
             if seq.finished():
                 self._finish_seq(seq)
+
+    def _prefill_all(self, step, tokens, positions, *rest):
+        """A prefill ``step`` of the adapter with host inputs (numpy arrays,
+        and Python ints passed as they are), run on every dp replica into
+        its own pool, as the reference replicates prefill.  Returns the
+        first replica's logits."""
+        out = None
+        for rep in self.replicas:
+            put = lambda a: (self._dev(a, device=rep.device)  # noqa: E731
+                             if isinstance(a, np.ndarray) else a)
+            logits, _, _ = step(rep.params, put(tokens), put(positions), rep.k_pools,
+                                rep.v_pools, *map(put, rest), **rep.scales_kw)
+            out = logits if out is None else out
+        return out
+
+    def _forward(self, step, tokens, positions, tables, slot_pages, slot_offsets, seq_lens):
+        """One decode or verify forward (``step``: the adapter's
+        ``decode_step`` or ``verify_step``) over the batch, inputs on the
+        engine's device; returns the logits of every row.  Over dp replicas,
+        replica r runs rows ``[r B/dp, (r+1) B/dp)`` on its own pool and
+        collects the K/V its layers handed the fused kernel; then every
+        replica stores every row's tokens, (row, fed token) pairs flattened
+        into writer rows (K7, or K8 for one buffer): the replicas' pools
+        stay bit-identical."""
+        if self.dp == 1:
+            rep = self.replicas[0]
+            return step(rep.params, tokens, positions, rep.k_pools, rep.v_pools, tables,
+                        slot_pages, slot_offsets, seq_lens, **rep.scales_kw)[0]
+        B, gd = tokens.shape[0], len(self._groups)  # gd: the batch axis of tables and slots
+        n = B // self.dp
+        logits, ks, vs = [], [], []
+        for r, rep in enumerate(self.replicas):
+            put = lambda t, dim=0: t.narrow(dim, r * n, n).contiguous().to(rep.device)  # noqa: E731
+            lg, _, _, (k, v) = step(
+                rep.params, put(tokens), put(positions), rep.k_pools, rep.v_pools,
+                put(tables, gd), put(slot_pages, gd), put(slot_offsets), put(seq_lens),
+                collect_kv=True, **rep.scales_kw)
+            logits.append(lg.to(self.device))
+            ks.append(k)
+            vs.append(v)
+        rows = slot_offsets.numel()
+        pages = slot_pages.reshape(self.num_groups, rows)[self._eq_groups]  # [Lk, rows]
+        offsets = slot_offsets.reshape(rows)
+        for rep in self.replicas:
+            def gather(parts):  # every row's tokens on this replica, [Lk, rows, KH, D]
+                x = torch.cat([p.to(rep.device) for p in parts], dim=1)
+                return x.reshape(x.shape[0], rows, *x.shape[-2:])
+            sp, so = pages.to(rep.device), offsets.to(rep.device)
+            sc = rep.quant_scales or (None, None)
+            if rep.v_pools is None:
+                write_decode_tokens_single(rep.k_pools, gather(ks), rep.pool_layers, sp, so,
+                                           k_scales=sc[0])
+            else:
+                write_decode_tokens(rep.k_pools, rep.v_pools, gather(ks), gather(vs),
+                                    rep.pool_layers, sp, so, k_scales=sc[0], v_scales=sc[1])
+        return torch.cat(logits)
+
+    def _note_replicas(self, batch: list[Sequence]) -> None:
+        """Count the rows that a dp replica other than their last one serves
+        (a neighbour finished and the batch shifted)."""
+        n = self.cfg.max_batch // self.dp
+        for i, seq in enumerate(batch):
+            r = i // n
+            self._row_moves += seq.replica is not None and seq.replica != r
+            seq.replica = r
 
     def _sample_first_token(self, seq: Sequence, logits, row: int = 0) -> int:
         """The prefill's token with the request's own sampling params,
@@ -833,13 +978,10 @@ class LLMEngine:
         gen = _generator(dev, self._step_count) if sampled else None
         tokens = self._dev(tokens0)
         out = []
-        scales = self._scales_kw
         for j in range(K):
             slots = plan[3:, j].reshape(self._groups + (B,))
-            logits, _, _ = self.adapter.decode_step(
-                self.params, tokens, plan[0, j], self.k_pools, self.v_pools,
-                tables, slots, plan[1, j], plan[2, j], **scales,
-            )
+            logits = self._forward(self.adapter.decode_step, tokens, plan[0, j], tables,
+                                   slots, plan[1, j], plan[2, j])
             tokens = _sample_tokens(logits, temps_t, top_ks_t, top_ps_t, gen,
                                     filters=filters, sampled=sampled)
             out.append(tokens)
@@ -859,6 +1001,7 @@ class LLMEngine:
         batch = self._admit_running(lambda s: len(s.tokens) + K)
         if not batch:
             return
+        self._note_replicas(batch)
         tokens0 = np.zeros(B, np.int32)
         seq_lens0 = np.zeros(B, np.int32)
         page_tables = np.zeros(self._groups + (B, self.max_pages_per_seq), np.int32)
@@ -984,9 +1127,8 @@ class LLMEngine:
             # cap would shift every query of the row; overflow queries'
             # outputs are discarded and their writes go to the zero page
             kv_lens = seq_lens + T
-            logits, _, _ = self.adapter.verify_step(
-                self.params, tokens, pos, self.k_pools, self.v_pools, tables,
-                slot_pages, pos % P, kv_lens, **self._scales_kw)
+            logits = self._forward(self.adapter.verify_step, tokens, pos, tables,
+                                   slot_pages, pos % P, kv_lens)
             if sampled:
                 toks, a = _spec_accept(logits, drafts, temps_t, top_ks_t,
                                        top_ps_t, gen, filters=filters)
@@ -1026,6 +1168,7 @@ class LLMEngine:
             lambda s: min(len(s.tokens) + S * T, self._row_cap(s)))
         if not batch:
             return
+        self._note_replicas(batch)
         ring = np.full((B, W), -1, np.int32)  # -1 pad: matches no n-gram
         seq_lens0 = np.zeros(B, np.int32)
         page_tables = np.zeros(self._groups + (B, self.max_pages_per_seq), np.int32)
@@ -1206,6 +1349,8 @@ class LLMEngine:
                 out["spec"]["gamma"] = self._spec_gamma_cur
                 out["spec"]["acceptance_ema"] = self._spec_ema
                 out["spec"]["cooldown"] = self._spec_cooldown
+        if self.mesh is not None:
+            out["dp"] = {"replicas": self.dp, "row_moves": self._row_moves}
         if self.num_groups > 1:
             out["groups"] = [
                 {"window": self.group_windows[g],

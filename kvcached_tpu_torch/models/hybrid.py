@@ -50,6 +50,7 @@ from ..ops.paged_prefill import (
     paged_prefill_attention_batch_plain,
 )
 from .llama import (
+    KVCollector,
     LlamaModel,
     _heads,
     _kernel_inputs,
@@ -395,6 +396,7 @@ def hybrid_decode_step(
     *,
     quant_scales: tuple | None = None,
     reference_attention: bool = False,
+    collect_kv: bool = False,
 ):
     """One decode token for each of B sequences: each layer writes its
     token into arena layer ``layer_in_group[l]`` through its group's slot
@@ -402,8 +404,9 @@ def hybrid_decode_step(
     attention soft-cap (K1).  Returns (logits [B, V] float32, k_pools,
     v_pools); the pools are written in place.  Byte pools: ``quant_scales``
     = (k_scales, v_scales), each ``[num_layers, KH]`` per model layer
-    (int8); ``reference_attention`` as
-    in :func:`~kvcached_tpu_torch.models.llama.llama_decode_step`."""
+    (int8); ``reference_attention`` and ``collect_kv`` (``(ks, vs)``
+    ``[num_layers, B, KH, D]``, by model layer) as in
+    :func:`~kvcached_tpu_torch.models.llama.llama_decode_step`."""
     _check_pools(k_pools)
     decode = paged_attention_decode_plain if reference_attention else paged_attention_decode
     B = tokens.shape[0]
@@ -412,6 +415,7 @@ def hybrid_decode_step(
     scales = _group_scales(cfg, k_pools, quant_scales)
     ropes = _group_ropes(cfg, positions, D)
     x = _embed(params, tokens, cfg)  # [B, E]
+    kv = KVCollector(collect_kv)
     for i, g, lg, window in _layers(cfg):
         lp = params.layer(i)
         h = _norm(x, lp["attn_norm"], cfg)
@@ -419,13 +423,13 @@ def hybrid_decode_step(
         q, k = apply_rope(q, *ropes[g]), apply_rope(k, *ropes[g])
         attn, _, _ = decode(
             cast(q), k_pools, v_pools, page_tables[g], seq_lens, lg,
-            cast(k), cast(v), slot_pages[g], slot_offsets,
+            *kv(cast(k), cast(v)), slot_pages[g], slot_offsets,
             window=window, sm_scale=_sm_scale(cfg), logit_softcap=cfg.attn_softcap,
             **scales[g],
         )
         x = _attn_residual(x, attn.reshape(B, H * D), lp, cfg)
         x = _mlp_residual(x, lp, cfg)
-    return _final_logits(x, params, cfg), k_pools, v_pools
+    return kv.result(_final_logits(x, params, cfg), k_pools, v_pools)
 
 
 def hybrid_prefill_batch_step(
@@ -535,14 +539,16 @@ def hybrid_verify_step(
     *,
     quant_scales: tuple | None = None,
     reference_attention: bool = False,
+    collect_kv: bool = False,
 ):
     """Speculative-decode verification on layer groups: each layer writes
     the T fed tokens into arena layer ``layer_in_group[l]`` through its
     group's slots and verifies them over its group's pages with the
     group's window and the attention soft-cap (K4); full-attention and
     sliding groups alike.  Returns (logits [B, T, V] float32, k_pools,
-    v_pools); the pools are written in place.  ``quant_scales`` and
-    ``reference_attention`` as in :func:`hybrid_decode_step`."""
+    v_pools); the pools are written in place.  ``quant_scales``,
+    ``reference_attention`` and ``collect_kv`` (``[num_layers, B, T, KH,
+    D]`` each) as in :func:`hybrid_decode_step`."""
     _check_pools(k_pools)
     verify = paged_attention_verify_plain if reference_attention else paged_attention_verify
     B, T = tokens.shape
@@ -551,6 +557,7 @@ def hybrid_verify_step(
     scales = _group_scales(cfg, k_pools, quant_scales)
     ropes = _group_ropes(cfg, positions, D)
     x = _embed(params, tokens, cfg)  # [B, T, E]
+    kv = KVCollector(collect_kv)
     for i, g, lg, window in _layers(cfg):
         lp = params.layer(i)
         h = _norm(x, lp["attn_norm"], cfg)
@@ -558,10 +565,10 @@ def hybrid_verify_step(
         q, k = apply_rope(q, *ropes[g]), apply_rope(k, *ropes[g])
         attn, _, _ = verify(
             cast(q), k_pools, v_pools, page_tables[g], seq_lens, lg,
-            cast(k), cast(v), slot_pages[g], slot_offsets,
+            *kv(cast(k), cast(v)), slot_pages[g], slot_offsets,
             window=window, sm_scale=_sm_scale(cfg), logit_softcap=cfg.attn_softcap,
             **scales[g],
         )  # [B, T, H, D]
         x = _attn_residual(x, attn.reshape(B, T, H * D), lp, cfg)
         x = _mlp_residual(x, lp, cfg)
-    return _final_logits(x, params, cfg), k_pools, v_pools
+    return kv.result(_final_logits(x, params, cfg), k_pools, v_pools)

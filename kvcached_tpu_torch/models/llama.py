@@ -289,6 +289,31 @@ def _kernel_inputs(pool_dtype, quant_scales):
     return (lambda t: t), dict(k_scales=quant_scales[0], v_scales=quant_scales[1])
 
 
+class KVCollector:
+    """The ``collect_kv`` option of the decode and verify steps: when on,
+    keeps the new K (and V) each layer hands its fused kernel, exactly
+    those tensors (after the cast), and appends them stacked over layers to
+    the step's result for the dp-replica equalizer."""
+
+    def __init__(self, on: bool):
+        self.ks, self.vs = ([], []) if on else (None, None)
+
+    def __call__(self, k, v=None):
+        """Record one layer's (k, v); returns them unchanged."""
+        if self.ks is not None:
+            self.ks.append(k)
+            if v is not None:
+                self.vs.append(v)
+        return k, v
+
+    def result(self, *out):
+        """The step's result, with ``(ks, vs)`` ([L, ...] each; vs None for
+        a single buffer) appended when collecting."""
+        if self.ks is None:
+            return out
+        return (*out, (torch.stack(self.ks), torch.stack(self.vs) if self.vs else None))
+
+
 def llama_decode_step(
     params: LlamaModel,
     cfg: LlamaConfig,
@@ -303,6 +328,7 @@ def llama_decode_step(
     *,
     quant_scales: tuple | None = None,
     reference_attention: bool = False,
+    collect_kv: bool = False,
 ):
     """One decode token for each of B sequences.  Returns (logits [B, V]
     float32, k_pools, v_pools); the pools are written in place.
@@ -312,13 +338,18 @@ def llama_decode_step(
 
     ``reference_attention`` runs the kernels' plain PyTorch versions
     instead of the kernels, on whatever device the tensors are: the on-card
-    reference the kernel path is checked against.  Serving never sets it."""
+    reference the kernel path is checked against.  Serving never sets it.
+
+    ``collect_kv`` appends ``(ks, vs)``, each [L, B, KH, D]: the K/V every
+    layer handed the fused kernel, for the dp-replica equalizer
+    (:func:`~kvcached_tpu_torch.ops.write_decode_tokens`)."""
     decode = paged_attention_decode_plain if reference_attention else paged_attention_decode
     B = tokens.shape[0]
     H, KH, D = _heads(params, cfg)
     cast, scales = _kernel_inputs(k_pools.dtype, quant_scales)
     cos, sin = rope_cos_sin(positions, D, cfg.rope_theta, cfg.rope_scaling)
     x = params.embed[tokens]  # [B, E]
+    kv = KVCollector(collect_kv)
     for i in range(cfg.num_layers):
         lp = params.layer(i)
         h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
@@ -328,13 +359,13 @@ def llama_decode_step(
         # over everything incl. itself
         attn, _, _ = decode(
             cast(q), k_pools, v_pools, page_tables, seq_lens, i,
-            cast(k), cast(v), slot_pages, slot_offsets,
+            *kv(cast(k), cast(v)), slot_pages, slot_offsets,
             window=cfg.sliding_window, **scales,
         )
         x = x + attn.to(x.dtype).reshape(B, H * D) @ lp["wo"]
         x = _mlp(x, lp, cfg.rms_eps)
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
-    return lm_head_logits(x, params.lm_head), k_pools, v_pools
+    return kv.result(lm_head_logits(x, params.lm_head), k_pools, v_pools)
 
 
 def llama_verify_step(
@@ -351,19 +382,21 @@ def llama_verify_step(
     *,
     quant_scales: tuple | None = None,
     reference_attention: bool = False,
+    collect_kv: bool = False,
 ):
     """Speculative-decode verification: T tokens per sequence in one
     forward pass (the weights stream once for T tokens), writing their K/V
     and returning the logits at every position.  Returns (logits [B, T, V]
     float32, k_pools, v_pools); the pools are written in place.
-    ``quant_scales`` and ``reference_attention`` as in
-    :func:`llama_decode_step`."""
+    ``quant_scales``, ``reference_attention`` and ``collect_kv`` (here
+    ``(ks, vs)`` [L, B, T, KH, D]) as in :func:`llama_decode_step`."""
     verify = paged_attention_verify_plain if reference_attention else paged_attention_verify
     B, T = tokens.shape
     H, KH, D = _heads(params, cfg)
     cast, scales = _kernel_inputs(k_pools.dtype, quant_scales)
     cos, sin = rope_cos_sin(positions, D, cfg.rope_theta, cfg.rope_scaling)
     x = params.embed[tokens]  # [B, T, E]
+    kv = KVCollector(collect_kv)
     for i in range(cfg.num_layers):
         lp = params.layer(i)
         h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
@@ -371,13 +404,13 @@ def llama_verify_step(
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         attn, _, _ = verify(
             cast(q), k_pools, v_pools, page_tables, seq_lens, i,
-            cast(k), cast(v), slot_pages, slot_offsets,
+            *kv(cast(k), cast(v)), slot_pages, slot_offsets,
             window=cfg.sliding_window, **scales,
         )  # [B, T, H, D]
         x = x + attn.to(x.dtype).reshape(B, T, H * D) @ lp["wo"]
         x = _mlp(x, lp, cfg.rms_eps)
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
-    return lm_head_logits(x, params.lm_head), k_pools, v_pools
+    return kv.result(lm_head_logits(x, params.lm_head), k_pools, v_pools)
 
 
 def llama_prefill_batch_step(

@@ -46,6 +46,7 @@ from ..ops.paged_prefill import (
     paged_prefill_attention_batch_plain,
 )
 from .llama import (
+    KVCollector,
     LlamaModel,
     _kernel_inputs,
     _mlp,
@@ -274,27 +275,30 @@ def mla_decode_step(
     *,
     quant_scales: tuple | None = None,  # (k_scales, v_scales) [L, 1] float32
     reference_attention: bool = False,
+    collect_kv: bool = False,
 ):
     """One decode token for each of B sequences.  Returns (logits [B, V]
     float32, k_pools, None); the pool is written in place.
-    ``quant_scales`` and ``reference_attention`` as in
-    :func:`~kvcached_tpu_torch.models.llama.llama_decode_step`."""
+    ``quant_scales``, ``reference_attention`` and ``collect_kv`` as in
+    :func:`~kvcached_tpu_torch.models.llama.llama_decode_step`; the
+    collected entries are the latent ones, ``(ks [L, B, 1, D], None)``."""
     decode = paged_attention_decode_plain if reference_attention else paged_attention_decode
     cast, scales = _kernel_inputs(k_pools.dtype, quant_scales)
     cos, sin = _rope_tables(cfg, positions)
     x = params.embed[tokens]  # [B, E]
+    kv = KVCollector(collect_kv)
     for i in range(cfg.num_layers):
         lp = params.layer(i)
 
         def attend(q_eff, ent, i=i):
             return decode(
                 cast(q_eff), k_pools, None, page_tables, seq_lens, i,
-                cast(ent), None, slot_pages, slot_offsets,
+                kv(cast(ent))[0], None, slot_pages, slot_offsets,
                 sm_scale=cfg.sm_scale, mla_v_dim=cfg.kv_lora_rank, **scales)[0]
 
         x = _mlp(_attention_block(cfg, lp, x, cos, sin, attend), lp, cfg.rms_eps)
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
-    return lm_head_logits(x, params.lm_head), k_pools, None
+    return kv.result(lm_head_logits(x, params.lm_head), k_pools, None)
 
 
 def mla_verify_step(
@@ -311,30 +315,33 @@ def mla_verify_step(
     *,
     quant_scales: tuple | None = None,
     reference_attention: bool = False,
+    collect_kv: bool = False,
 ):
     """Speculative-decode verification: T tokens per sequence in one
     absorbed-attention pass over the latent pool.  Returns (logits
-    [B, T, V] float32, k_pools, None).  ``quant_scales`` as in
+    [B, T, V] float32, k_pools, None).  ``quant_scales`` and
+    ``collect_kv`` (``(ks [L, B, T, 1, D], None)``) as in
     :func:`mla_decode_step`."""
     verify = paged_attention_verify_plain if reference_attention else paged_attention_verify
     B, T = tokens.shape
     cast, scales = _kernel_inputs(k_pools.dtype, quant_scales)
     cos, sin = _rope_tables(cfg, positions)
     x = params.embed[tokens].reshape(B * T, -1)
+    kv = KVCollector(collect_kv)
     for i in range(cfg.num_layers):
         lp = params.layer(i)
 
         def attend(q_eff, ent, i=i):
             out = verify(
                 cast(q_eff).reshape(B, T, -1, cfg.cache_head_dim), k_pools, None,
-                page_tables, seq_lens, i, cast(ent).reshape(B, T, 1, -1), None,
+                page_tables, seq_lens, i, kv(cast(ent).reshape(B, T, 1, -1))[0], None,
                 slot_pages, slot_offsets, sm_scale=cfg.sm_scale,
                 mla_v_dim=cfg.kv_lora_rank, **scales)[0]
             return out.reshape(B * T, -1, cfg.cache_head_dim)
 
         x = _mlp(_attention_block(cfg, lp, x, cos, sin, attend), lp, cfg.rms_eps)
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
-    return lm_head_logits(x, params.lm_head).reshape(B, T, -1), k_pools, None
+    return kv.result(lm_head_logits(x, params.lm_head).reshape(B, T, -1), k_pools, None)
 
 
 def mla_prefill_batch_step(

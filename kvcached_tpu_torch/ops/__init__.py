@@ -24,6 +24,10 @@ from .paged_attention import (
     write_prefill_kv_plain,
     write_prefill_kv_single,
     write_prefill_kv_single_plain,
+    write_decode_tokens,
+    write_decode_tokens_plain,
+    write_decode_tokens_single,
+    write_decode_tokens_single_plain,
 )
 from .paged_prefill import (
     paged_prefill_attention,
@@ -34,7 +38,8 @@ from .paged_prefill import (
 
 #: kernel id → wrapper (K1r is K1's CUDA kernel with the write off; K5,
 #: K5v and K3m are the MLA modes of decode, verify and prefill, all three
-#: launching csrc/mla_attend.cu)
+#: launching csrc/mla_attend.cu; K7 and K8 are the dp-replica equalizer's
+#: token writers, csrc/decode_tokens_write.cu)
 KERNELS = {
     "K1": paged_attention_decode,
     "K1r": paged_attention,
@@ -45,6 +50,8 @@ KERNELS = {
     "K5v": paged_attention_verify_mla,
     "K6": write_prefill_kv_single,
     "K3m": paged_prefill_attention_batch_mla,
+    "K7": write_decode_tokens,
+    "K8": write_decode_tokens_single,
 }
 
 
@@ -81,6 +88,10 @@ __all__ = [
     "paged_prefill_attention_batch_plain",
     "quantize_kv",
     "to_e4m3",
+    "write_decode_tokens",
+    "write_decode_tokens_plain",
+    "write_decode_tokens_single",
+    "write_decode_tokens_single_plain",
     "write_prefill_kv",
     "write_prefill_kv_plain",
     "write_prefill_kv_single",

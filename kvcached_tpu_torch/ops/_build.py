@@ -33,7 +33,7 @@ PER_HEAD_DIM = ("paged_decode", "paged_prefill", "paged_verify")
 #: per-head-dim ones again for each other width
 LIBRARIES = {
     **{n: (n, ()) for n in ("paged_decode", "prefill_write", "paged_prefill",
-                            "paged_verify", "mla_attend")},
+                            "paged_verify", "mla_attend", "decode_tokens_write")},
     **{f"{n}_d{d}": (n, (f"-DKVC_HEAD_DIM={d}",))
        for n in PER_HEAD_DIM for d in HEAD_DIMS[1:]},
 }
@@ -62,6 +62,7 @@ _SIGNATURES = {
     "paged_verify": {"kvc_paged_verify": [_I, _I] + [_P] * 13 + [_I] * 9 + [_F, _F, _P]},
     "mla_attend": {"kvc_mla_attend": [_I] + [_P] * 11 + [_I] * 9 + [_F, _P],
                    "kvc_mla_wave_blocks": [_I, _I, ctypes.POINTER(_I)]},
+    "decode_tokens_write": {"kvc_decode_tokens_write": [_I, _I] + [_P] * 9 + [_I] * 8 + [_P]},
 }
 
 

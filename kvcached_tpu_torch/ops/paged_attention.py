@@ -22,9 +22,14 @@ Port of the Pallas kernels of ``kvcached_tpu/ops/paged_attention.py``:
   :func:`paged_attention_verify_mla`.
 - :func:`write_prefill_kv_single` (K6) replaces ``write_prefill_kv_single``
   (``_prefill_write_single_kernel``): K2 for the single latent pool.
+- :func:`write_decode_tokens` (K7) and :func:`write_decode_tokens_single`
+  (K8) replace ``write_decode_tokens`` and ``write_decode_tokens_single``
+  (``_decode_tokens_write_kernel``, ``_decode_tokens_write_single_kernel``):
+  one decode token per (kv layer, row), the dp-replica equalizer's store.
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/paged_decode.cu``,
-``csrc/prefill_write.cu``, ``csrc/paged_verify.cu``, ``csrc/mla_attend.cu``) on
+``csrc/prefill_write.cu``, ``csrc/paged_verify.cu``, ``csrc/mla_attend.cu``,
+``csrc/decode_tokens_write.cu``) on
 ``torch.cuda.current_stream()`` when given CUDA
 tensors, and runs the plain PyTorch version beside it (``*_plain``) only
 when given CPU tensors.  There is no fallback: a CUDA call that the kernel
@@ -1006,9 +1011,157 @@ def paged_attention_verify_mla(q, k_pool, page_tables, seq_lens, layer, k_new,
     return out.to(q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# K7 / K8: one decode token per (kv layer, row), the dp-replica equalizer
+# ---------------------------------------------------------------------------
+
+
+def _token_scales(scales, pool_dtype, L, Lk):
+    """(int8 scales as the writers take them, keyed by kv layer?): [L, KH]
+    keyed by pool layer, or [Lk, KH] keyed by kv layer when that is their
+    row count and ``Lk != L`` (the reference's rule: a hybrid arena's
+    per-model-layer scales).  None for other pools."""
+    if scales is None or pool_dtype != torch.int8:
+        return None, False
+    by_kv = scales.shape[0] == Lk and Lk != L
+    return scales.float(), by_kv
+
+
+def write_decode_tokens_plain(k_pool, v_pool, k_new, v_new, pool_layers, slot_pages,
+                              slot_offsets, *, k_scales=None, v_scales=None):
+    """Plain PyTorch version of K7 (``v_pool`` None: K8): each kv layer's
+    tokens through :func:`_write_slots`, the fused kernels' own store."""
+    L, Lk = k_pool.shape[0], k_new.shape[0]
+    ks, by_kv = _token_scales(k_scales, k_pool.dtype, L, Lk)
+    vs, _ = _token_scales(v_scales, k_pool.dtype, L, Lk)
+    for li, layer in enumerate(pool_layers.tolist()):
+        row = li if by_kv else layer
+        _write_slots(k_pool, layer, k_new[li], slot_pages[li], slot_offsets,
+                     None if ks is None else ks[row])
+        if v_pool is not None:
+            _write_slots(v_pool, layer, v_new[li], slot_pages[li], slot_offsets,
+                         None if vs is None else vs[row])
+    return k_pool, v_pool
+
+
+def write_decode_tokens_single_plain(k_pool, k_new, pool_layers, slot_pages, slot_offsets,
+                                     *, k_scales=None):
+    """Plain PyTorch version of K8."""
+    return write_decode_tokens_plain(k_pool, None, k_new, None, pool_layers, slot_pages,
+                                     slot_offsets, k_scales=k_scales)[0]
+
+
+def _decode_tokens_launch(wrapper, k_pool, v_pool, k_new, v_new, pool_layers, slot_pages,
+                          slot_offsets, k_scales, v_scales):
+    """Check the CUDA tensors and launch ``csrc/decode_tokens_write.cu``
+    (``v_pool`` None: K8)."""
+    pools = (k_pool,) if v_pool is None else (k_pool, v_pool)
+    if k_pool.dim() != 5 or not k_pool.is_contiguous():
+        raise ValueError(f"pools must be contiguous [L, pages, KH, page_tokens, D], "
+                         f"got {tuple(k_pool.shape)}")
+    if v_pool is not None:
+        _require(v_pool, "v_pool", k_pool.dtype, k_pool.shape)
+    L, P, KH, TP, D = k_pool.shape
+    dt = k_pool.dtype
+    byte = dt in BYTE_DTYPES
+    if (D * k_pool.element_size()) % 16 or (byte and D % 16):
+        raise ValueError(f"head_dim {D} does not fill whole 16-byte vectors of a {dt} pool")
+    Lk, B = k_new.shape[:2]
+    # byte pools: the bf16 model's tokens as they are (the kernel widens
+    # them), any other type as float32
+    ndt = (torch.bfloat16 if k_new.dtype == torch.bfloat16 else torch.float32) if byte else dt
+    news = [t.to(ndt).contiguous() for t in (k_new, v_new) if t is not None]
+    for t, name in zip(news, ("k_new", "v_new")):
+        _require(t, name, ndt, (Lk, B, KH, D))
+    if len(news) != len(pools):
+        raise ValueError("v_new and v_pool go together")
+    _require(pool_layers, "pool_layers", torch.int32, (Lk,))
+    _require(slot_pages, "slot_pages", torch.int32, (Lk, B))
+    _require(slot_offsets, "slot_offsets", torch.int32, (B,))
+    if dt == torch.int8 and (k_scales is None or (v_pool is not None and v_scales is None)):
+        raise ValueError("int8 pools need their per-head scales")
+    ks, by_kv = _token_scales(k_scales, dt, L, Lk)
+    vs, _ = _token_scales(v_scales, dt, L, Lk)
+    rows = Lk if by_kv else L
+    ks, vs = (None if s is None else _scales_arg(s, dt, rows, KH, k_pool.device)
+              for s in (ks, vs if v_pool is not None else None))
+    _require_aligned("K7" if v_pool is not None else "K8", *news, *pools)
+    lib = _build.load("decode_tokens_write")
+    rc = lib.kvc_decode_tokens_write(
+        KERNEL_DTYPES[dt], int(ndt == torch.bfloat16 and byte), news[0].data_ptr(), _ptr(news[1] if v_pool is not None else None),
+        k_pool.data_ptr(), _ptr(v_pool), pool_layers.data_ptr(), slot_pages.data_ptr(),
+        slot_offsets.data_ptr(), _ptr(ks), _ptr(vs), Lk, B, L, P, KH, TP, D, int(by_kv),
+        _stream(k_pool))
+    _build.check(rc, "decode_tokens_write")
+    _count(wrapper, dt, head_dim=D if D in KERNEL_HEAD_DIM else KERNEL_HEAD_DIM[0])
+
+
+def write_decode_tokens(
+    k_pool: torch.Tensor,  # [L, num_pages, num_kv_heads, page_tokens, head_dim]
+    v_pool: torch.Tensor,
+    k_new: torch.Tensor,  # [Lk, B, num_kv_heads, head_dim] unquantized
+    v_new: torch.Tensor,
+    pool_layers: torch.Tensor,  # [Lk] int32 pool layer of each kv layer
+    slot_pages: torch.Tensor,  # [Lk, B] int32 physical page (0 = discard)
+    slot_offsets: torch.Tensor,  # [B] int32 slot within the page
+    *,
+    k_scales=None,  # int8: [L, KH], or [Lk, KH] keyed by kv layer
+    v_scales=None,
+):
+    """K7: store one decode token per (kv layer, row) into the pools, in
+    place.  Returns ``(k_pool, v_pool)``.
+
+    Replaces the Pallas ``_decode_tokens_write_kernel``: the dp-replica
+    equalizer, which after each step stores every row's token into every
+    replica's pool.  A slot the fused kernels (K1, K4) already wrote keeps
+    its bytes: float32 and bf16 tokens are cast to the pool's type, byte
+    pools quantize as the fused kernels do.  ``pool_layers`` maps kv layers
+    to pool layers (the identity, or a hybrid arena's ``layer_in_group``).
+    int8 pools need the scales; they are keyed by kv layer when their row
+    count is ``Lk != L``, as the reference keys them.  Bound by
+    device-memory bytes; ``csrc/decode_tokens_write.cu`` gives each (row,
+    kv layer) one block moving its KH x D values as 16-byte vectors."""
+    _unsupported(pool_dtype=k_pool.dtype)
+    if _on_cpu(k_pool, v_pool, k_new, v_new, pool_layers, slot_pages, slot_offsets):
+        if k_pool.dtype == torch.int8 and (k_scales is None or v_scales is None):
+            raise ValueError("int8 pools need their per-head scales")
+        return write_decode_tokens_plain(k_pool, v_pool, k_new, v_new, pool_layers,
+                                         slot_pages, slot_offsets, k_scales=k_scales,
+                                         v_scales=v_scales)
+    _decode_tokens_launch(write_decode_tokens, k_pool, v_pool, k_new, v_new, pool_layers,
+                          slot_pages, slot_offsets, k_scales, v_scales)
+    return k_pool, v_pool
+
+
+def write_decode_tokens_single(
+    k_pool: torch.Tensor,  # [L, num_pages, num_kv_heads, page_tokens, head_dim]
+    k_new: torch.Tensor,  # [Lk, B, num_kv_heads, head_dim] unquantized
+    pool_layers: torch.Tensor,  # [Lk] int32
+    slot_pages: torch.Tensor,  # [Lk, B] int32 (0 = discard)
+    slot_offsets: torch.Tensor,  # [B] int32
+    *,
+    k_scales=None,  # int8: [L, KH]
+) -> torch.Tensor:
+    """K8: :func:`write_decode_tokens` for one buffer, the MLA latent pool
+    (one kv head of 640 lanes).  Returns ``k_pool``.
+
+    Replaces the Pallas ``_decode_tokens_write_single_kernel``: the same
+    CUDA kernel without V."""
+    _mla_pool(k_pool.dtype)
+    if _on_cpu(k_pool, k_new, pool_layers, slot_pages, slot_offsets):
+        if k_pool.dtype == torch.int8 and k_scales is None:
+            raise ValueError("int8 pools need their per-head scales")
+        return write_decode_tokens_single_plain(k_pool, k_new, pool_layers, slot_pages,
+                                                slot_offsets, k_scales=k_scales)
+    _decode_tokens_launch(write_decode_tokens_single, k_pool, None, k_new, None, pool_layers,
+                          slot_pages, slot_offsets, k_scales, None)
+    return k_pool
+
+
 for _wrapper in (paged_attention_decode, paged_attention, write_prefill_kv,
                  paged_attention_verify, write_prefill_kv_single,
-                 paged_attention_decode_mla, paged_attention_verify_mla):
+                 paged_attention_decode_mla, paged_attention_verify_mla,
+                 write_decode_tokens, write_decode_tokens_single):
     _wrapper.launches = 0
     _wrapper.launches_by_dtype = {}
 

@@ -49,6 +49,7 @@ def _entry_points():
     from kvcached_tpu_torch.device.pool import DevicePagePool, PoolSpec
     from kvcached_tpu_torch.engine import EngineConfig, LLMEngine
     from kvcached_tpu_torch.models.llama import LlamaConfig, init_llama_params
+    from kvcached_tpu_torch.parallel import make_mesh
 
     cfg = LlamaConfig.toy(dtype="float32", num_layers=1)
     spec = PoolSpec(1, 4, 2, 16, 128, torch.float32)
@@ -58,10 +59,13 @@ def _entry_points():
         "init_llama_params": lambda **kw: init_llama_params(cfg, **kw),
         "DevicePagePool": lambda **kw: DevicePagePool(spec, **kw),
         "LLMEngine": lambda **kw: LLMEngine(cfg, ec, **kw).shutdown() or True,
+        "make_mesh": lambda device=None: make_mesh(
+            dp=1, devices=None if device is None else [device]),
     }
 
 
-@pytest.mark.parametrize("name", ["init_llama_params", "DevicePagePool", "LLMEngine"])
+@pytest.mark.parametrize("name", ["init_llama_params", "DevicePagePool", "LLMEngine",
+                                  "make_mesh"])
 def test_entry_points_default_to_cuda(name):
     make = _entry_points()[name]
     assert make(device="cpu") is not None
